@@ -10,9 +10,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
   3. session: loads trained/production_state.pkl without JAX and plans the
      512² serving frame (K2, ray budget);
   4. kernels: each kernel's wrapper on the inputs the main path gives it
-     (captured from one frame), against its plain PyTorch version on the
-     card — the march select must be equal, the field kernel within
-     FIELD_TOL — with kernel / plain-version times and the bound;
+     (captured from the slice's frames: the field kernel at both of its
+     launch shapes, stage 1 and stage 2), against its plain PyTorch version
+     on the card — the march select must be equal, the field kernel
+     (triplane lookup + SH basis + MLP) within FIELD_TOL at every launch of
+     every frame, with its largest errors and the margin to FIELD_TOL per
+     stage — with kernel / plain-version times at the first frame's
+     shapes, the bounds and the share of each; the field library's SASS
+     must hold tensor-core (HMMA) instructions;
   5. slice: 8 frames at 512² with torso through the session, launch counts
      reset just before and read just after (each kernel must have
      launched), frames/s, n_active; frame 0 rendered again through the
@@ -39,7 +44,11 @@ FRAME_TOL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# multiply-adds of the field MLP per sample
+FIELD_MACS = (36 * 80 + 64 * 32 + 16 + 36 * 64 + 32 * 64 + 64 + 64 * 64
+              + 64 * 65 + 64 * 64 + 16 * 64 + 64 * 3)
 
 
 def log(msg: str) -> None:
@@ -59,6 +68,10 @@ def nvidia_smi() -> str:
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of fn: the calls are queued behind a sleeping
+    kernel, so that the events time the card and not the host's enqueue
+    (a kernel of tens of microseconds runs faster than its Python wrapper
+    can launch it)."""
     import torch
 
     for _ in range(warmup):
@@ -66,12 +79,46 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)     # ~0.1 s at the card's clock
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def sass_hmma(path: str):
+    """Number of tensor-core (HMMA) instructions in a library's SASS, or
+    None where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", path], capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()}")
+    return sum("HMMA" in line for line in r.stdout.splitlines())
+
+
+def field_errors(out_k, out_p) -> dict:
+    """Field kernel output vs its plain version, both [N, 4] = (sigma, rgb):
+    the largest errors, the largest share of FIELD_TOL each takes, and
+    whether the kernel's output is finite and within FIELD_TOL."""
+    import torch
+
+    err_sig = (out_k[:, 0] - out_p[:, 0]).abs()
+    sig_share = float((err_sig / (FIELD_TOL["sigma_atol"] + FIELD_TOL[
+        "sigma_rtol"] * out_p[:, 0].abs())).max())
+    col = float((out_k[:, 1:] - out_p[:, 1:]).abs().max())
+    col_share = col / FIELD_TOL["color_atol"]
+    fin = bool(torch.isfinite(out_k).all())
+    return {"err": float((out_k - out_p).abs().max()),
+            "sigma": float(err_sig.max()), "sigma_share": sig_share,
+            "color": col, "color_share": col_share,
+            "ok": fin and sig_share <= 1.0 and col_share <= 1.0}
 
 
 def main() -> int:
@@ -94,7 +141,6 @@ def main() -> int:
     from lzzx_nerf_tpu_torch.ops import fused_field as ff
     from lzzx_nerf_tpu_torch.ops import march2 as m2_mod
     from lzzx_nerf_tpu_torch.ops import march_select as ms
-    from lzzx_nerf_tpu_torch.ops.sh import sh_encode
     from lzzx_nerf_tpu_torch.serving import ServingSession
 
     dev = torch.device("cuda:0")
@@ -114,6 +160,12 @@ def main() -> int:
             for line in i["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[ptxas] {n}: {line.strip()}")
+    log(f"[occupancy] fused_field: {kernels.info('fused_field')}")
+    hmma = sass_hmma(info["fused_field"]["path"])
+    sass_ok = hmma is None or hmma > 0
+    log(f"[sass] fused_field: "
+        f"{'cuobjdump not found, not checked' if hmma is None else f'{hmma} HMMA instructions'} "
+        f"{'OK' if sass_ok else 'FAIL'}")
 
     # ---- session
     t0 = time.perf_counter()
@@ -130,14 +182,23 @@ def main() -> int:
                                ).astype(np.float32)
     eyes = [0.15 + 0.1 * np.sin(f / 4) for f in range(F)]
 
-    # ---- capture each kernel's inputs from one main-path frame
+    # ---- capture each kernel's inputs from the slice's frames: the first
+    # frame's are kept; every field launch is held to its plain version
     t0 = time.perf_counter()
-    captured = {}
+    captured = {"field": []}
+    field_checks = []   # (N, field_errors) per field launch, in order
     orig_field, orig_select = ff.fused_field_eval, ms.march_select
 
-    def cap_field(fw, enc_x, dirs):
-        captured.setdefault("field", (fw, enc_x.clone(), dirs.clone()))
-        return orig_field(fw, enc_x, dirs)
+    def cap_field(*a):
+        if len(captured["field"]) < 2:
+            captured["field"].append(tuple(
+                x.clone() if torch.is_tensor(x) else x for x in a))
+        out = orig_field(*a)
+        fw, pts, dirs, tables, spec, bound = a[:6]
+        out_p = ff.field_reference(fw, pts, dirs, tables, spec, bound)
+        field_checks.append((pts.shape[0], field_errors(
+            torch.cat([out[0][:, None], out[1]], -1), out_p)))
+        return out
 
     def cap_select(*a, **k):
         captured.setdefault("select", tuple(
@@ -145,54 +206,68 @@ def main() -> int:
         return orig_select(*a, **k)
 
     # march2 binds the select wrapper by name; make_fused_apply looks the
-    # field wrapper up in its module at each frame
+    # field wrapper up in its module at each call
     m2_mod.march_select = cap_select
     ff.fused_field_eval = cap_field
     try:
-        sess.render(auds[:1], eyes[:1])
+        sess.render(auds, eyes)
     finally:
         m2_mod.march_select = orig_select
         ff.fused_field_eval = orig_field
     sess.reset_audio()
     torch.cuda.synchronize()
-    log(f"[capture] field N={captured['field'][1].shape[0]} select "
-        f"B={captured['select'][4].shape[0]} G={captured['select'][1].shape[1]} "
+    log(f"[capture] field N={[c[1].shape[0] for c in captured['field']]} "
+        f"select B={captured['select'][4].shape[0]} "
+        f"G={captured['select'][1].shape[1]} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    ok = True
+    ok = sass_ok
 
-    # ---- kernel 1: field MLP
-    t0 = time.perf_counter()
-    fw, enc_x, dirs = captured["field"]
-    # the wrapper on the captured inputs against the plain version
-    out_k = torch.cat([t.reshape(enc_x.shape[0], -1)
-                       for t in ff.fused_field_eval(fw, enc_x, dirs)], -1)
-    out_p = torch.cat([t.reshape(enc_x.shape[0], -1) for t in
-                       ff.fused_field_eval_reference(fw, enc_x, dirs)], -1)
-    torch.cuda.synchronize()
-    fin = bool(torch.isfinite(out_k).all())
-    err_sig = (out_k[:, 0] - out_p[:, 0]).abs()
-    sig_ok = bool((err_sig <= FIELD_TOL["sigma_atol"]
-                   + FIELD_TOL["sigma_rtol"] * out_p[:, 0].abs()).all())
-    err_col = float((out_k[:, 1:] - out_p[:, 1:]).abs().max())
-    field_err = float((out_k - out_p).abs().max())
-    f_ok = fin and sig_ok and err_col <= FIELD_TOL["color_atol"]
-    ok &= f_ok
-    # timed: the kernel alone and the plain version on the same SH basis
-    shd = sh_encode(dirs, 4).contiguous()
-    wpack = ff.pack_frame_weights(fw)
-    n = enc_x.shape[0]
-    macs = (36 * 80 + 64 * 32 + 16 + 36 * 64 + 32 * 64 + 64 + 64 * 64
-            + 64 * 65 + 64 * 64 + 16 * 64 + 64 * 3)
-    f_flops = 2.0 * macs * n
-    f_bytes = n * (36 + 16 + 4) * 4 + wpack.numel() * 4
-    f_bound = 1e3 * max(f_flops / PEAK_F32_FLOPS, f_bytes / PEAK_BYTES)
-    f_ms = cuda_time_ms(lambda: ff.fused_field_cuda(enc_x, shd, wpack))
-    f_plain = cuda_time_ms(lambda: ff.fused_field_reference(fw, enc_x, shd))
-    log(f"[kernel] fused_field N={n} max_abs_err={field_err:.3g} "
-        f"(sigma within tol: {sig_ok}, color err {err_col:.3g}) "
-        f"ms={f_ms:.4f} plain_ms={f_plain:.4f} bound_ms={f_bound:.4f} "
-        f"{'OK' if f_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    # ---- kernel 1 over every frame: the largest errors per stage shape
+    # and their share of FIELD_TOL (the margin is its inverse)
+    for n in dict.fromkeys(m for m, _ in field_checks):
+        errs = [e for m, e in field_checks if m == n]
+        f_ok = all(e["ok"] for e in errs)
+        ok &= f_ok
+        cols = [float(f"{e['color']:.3g}") for e in errs]
+        worst_c = max(e["color_share"] for e in errs)
+        worst_s = max(e["sigma_share"] for e in errs)
+        log(f"[field] N={n} over {len(errs)} launches ({F} frames): "
+            f"color err per launch {cols} max share of tol {worst_c:.3f}; "
+            f"sigma err max {max(e['sigma'] for e in errs):.3g} max share "
+            f"of tol {worst_s:.3f} {'OK' if f_ok else 'FAIL'}")
+
+    # ---- kernel 1: the field (triplane lookup + SH basis + MLP), at the
+    # frame's two launch shapes (stage 1, stage 2)
+    field_rows = []
+    for stage, (fw, pts, dirs, tables, spec, bound, wpack) in enumerate(
+            captured["field"], 1):
+        t0 = time.perf_counter()
+        n = pts.shape[0]
+        e = field_checks[stage - 1][1]   # this launch, held above
+        err = e["err"]
+        xy, yz, xz = tables["xy"], tables["yz"], tables["xz"]
+        flops = 2.0 * FIELD_MACS * n
+        nbytes = (n * (3 + 3 + 4) * 4 + wpack.numel() * 4
+                  + sum(t.numel() * t.element_size() for t in (xy, yz, xz)))
+        b_bytes = 1e3 * nbytes / PEAK_BYTES
+        b_f32 = max(1e3 * flops / PEAK_F32_FLOPS, b_bytes)
+        b_tc = max(1e3 * 3 * flops / PEAK_TF32_FLOPS, b_bytes)
+        ms_k = cuda_time_ms(lambda: ff.fused_field_cuda(
+            pts, dirs, xy, yz, xz, bound, wpack))
+        ms_p = cuda_time_ms(lambda: ff.field_reference(
+            fw, pts, dirs, tables, spec, bound), reps=5, warmup=1)
+        field_rows.append({"n": n, "err": err, "ms": ms_k, "plain_ms": ms_p,
+                           "bound_tc": b_tc, "bound_f32": b_f32,
+                           "by": "operations" if b_tc > b_bytes
+                           else "bytes"})
+        log(f"[kernel] fused_field stage {stage} N={n} max_abs_err={err:.3g} "
+            f"(color {e['color']:.3g}, sigma {e['sigma']:.3g}) "
+            f"ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+            f"bound_ms 3xTF32={b_tc:.4f} (share {b_tc / ms_k:.3f}) "
+            f"f32-FMA={b_f32:.4f} (share {b_f32 / ms_k:.3f}) "
+            f"{'OK' if e['ok'] else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- kernel 2: march select
     t0 = time.perf_counter()
@@ -206,6 +281,8 @@ def main() -> int:
     sel_k = ms.march_select(*sel_args)
     sel_p = ms.march_select_reference(*sel_args)
     torch.cuda.synchronize()
+    log(f"[occupancy] march_select at G={gx.shape[1]} S={S}: "
+        f"{kernels.info('march_select', gx.shape[1], S)}")
     s_ok = bool(torch.equal(sel_k, sel_p))
     ok &= s_ok
     s_err = float((sel_k.long() - sel_p.long()).abs().max())
@@ -232,6 +309,7 @@ def main() -> int:
     log(f"[kernel] march_select B={B} G={gx.shape[1]} S={S} equal={s_ok} "
         f"samples={int((sel_k >= 0).sum())} ms={s_ms:.4f} "
         f"plain_ms={s_plain:.4f} bound_ms={s_bound:.4f} "
+        f"(share {s_bound / s_ms:.3f}) "
         f"{'OK' if s_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
 
     # ---- the slice through the session, counters around it
@@ -278,10 +356,11 @@ def main() -> int:
         {"name": "fused_field", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/fused_field.cu",
          "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
-         "launches": launches["fused_field"], "max_abs_err": field_err,
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
-         "bound_by": "operations" if f_flops / PEAK_F32_FLOPS
-         >= f_bytes / PEAK_BYTES else "bytes", "library_ms": None},
+         "launches": launches["fused_field"],
+         "max_abs_err": max(r["err"] for r in field_rows),
+         "ms": field_rows[0]["ms"], "plain_ms": field_rows[0]["plain_ms"],
+         "bound_ms": field_rows[0]["bound_tc"],
+         "bound_by": field_rows[0]["by"], "library_ms": None},
         {"name": "march_select", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",

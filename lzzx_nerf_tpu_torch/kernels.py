@@ -39,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "fused_field": ("fused_field_launch", [_P, _P, _P, _P, _I, _P]),
+    "fused_field": ("fused_field_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P]),
     "march_select": ("march_select_launch",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _F, _F, _I, _I, _P]),
@@ -123,6 +124,23 @@ def library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def info(name: str, *shape: int) -> Dict[str, int]:
+    """Registers and spill bytes per thread, shared memory per block and
+    resident warps per SM of one kernel as compiled, from the CUDA runtime
+    (its library's ``<name>_info`` entry point). `shape` is what that
+    entry point takes after its output array: the launch sizes its shared
+    memory depends on (march_select: G, S; fused_field: none)."""
+    fn = getattr(library(name), f"{name}_info")
+    fn.argtypes = [_P] + [_I] * len(shape)
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    status = fn(ctypes.cast(out, _P), *shape)
+    if status != 0:
+        raise RuntimeError(f"{name}_info failed with CUDA error {status}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "warps_per_sm"), out))
 
 
 def launch(name: str, *args) -> None:

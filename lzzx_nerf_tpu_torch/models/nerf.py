@@ -14,9 +14,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import fused_field as ff
 from ..ops.freq import freq_encode
 from ..ops.packed_triplane import (DenseTriplaneSpec, bake_packed,
-                                   dense_triplane_encode)
+                                   dense_triplane_encode, encode_triplanes)
 from .audio import AudioAttNet, AudioNet
 from .mlp import MLP
 
@@ -68,12 +69,7 @@ class NeRFField(nn.Module):
     def encode_x(self, xyz: torch.Tensor,
                  packed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[N, 3] in [-bound, bound] -> [N, 36] triplane features."""
-        xy = xyz[:, :2]
-        yz = xyz[:, 1:]
-        xz = torch.cat([xyz[:, :1], xyz[:, 2:]], dim=-1)
-        return torch.cat([
-            dense_triplane_encode(packed[p], q, self.dense_spec, self.bound)
-            for p, q in (("xy", xy), ("yz", yz), ("xz", xz))], dim=-1)
+        return encode_triplanes(xyz, packed, self.dense_spec, self.bound)
 
     @torch.no_grad()
     def encode_audio(self, a: torch.Tensor) -> torch.Tensor:
@@ -94,21 +90,26 @@ def make_fused_apply(field: NeRFField, packed: Dict[str, torch.Tensor],
     (ops/fused_field.py). The frame's audio code, individual code and eye
     value fold into the weights here, once per frame.
 
-    use_kernel=True evaluates the MLP stack through the field kernel's
-    wrapper (fused_field_eval: the CUDA kernel on a CUDA device, its plain
-    version on the CPU); False runs the plain version on any device — the
-    reference the kernel is held to (the JAX package's --fused 1)."""
-    from ..ops.fused_field import (extract_field_weights,
-                                   fold_frame_weights, fused_field_eval,
-                                   fused_field_eval_reference)
-
-    fw = fold_frame_weights(extract_field_weights(field), enc_a, ind_code,
-                            eye)
-    evaluate = fused_field_eval if use_kernel else fused_field_eval_reference
+    use_kernel=True evaluates the triplane lookup, the SH basis and the
+    MLP stack through the field kernel's wrapper (fused_field_eval: the
+    CUDA kernel on a CUDA device, its plain version on the CPU); False runs
+    the plain version on any device — the reference the kernel is held to
+    (the JAX package's --fused 1)."""
+    fw = ff.fold_frame_weights(ff.extract_field_weights(field), enc_a,
+                               ind_code, eye)
+    # the kernel's weight vector, once per frame
+    wpack = (ff.pack_frame_weights(fw)
+             if use_kernel and fw.sig1.device.type == "cuda" else None)
 
     @torch.no_grad()
     def apply(pts, dirs):
-        return evaluate(fw, field.encode_x(pts, packed), dirs)
+        # looked up in the module at each call, so a caller can wrap them
+        if use_kernel:
+            return ff.fused_field_eval(fw, pts, dirs, packed,
+                                       field.dense_spec, field.bound, wpack)
+        out = ff.field_reference(fw, pts, dirs, packed, field.dense_spec,
+                                 field.bound)
+        return out[:, 0], out[:, 1:4]
 
     return apply
 

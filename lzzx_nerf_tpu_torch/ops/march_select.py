@@ -72,9 +72,10 @@ def march_select_cuda(col_mask, gx, gy, w0, rays_o, rays_d, t_start, t_end,
     G = gx.shape[1]
     W32 = H // 32
     S = max_samples
-    if B % 4 or H % 32 or not 1 <= S <= 32:
-        raise ValueError(f"march_select_cuda: need B % 4 == 0, H % 32 == 0 "
-                         f"and 1 <= S <= 32 (B={B}, H={H}, S={S})")
+    if B % 4 or H % 32 or not 1 <= S <= 32 or 3 * G + 4 * S > 1536:
+        raise ValueError(f"march_select_cuda: need B % 4 == 0, H % 32 == 0, "
+                         f"1 <= S <= 32 and 3 G + 4 S <= 1536 (B={B}, H={H}, "
+                         f"G={G}, S={S})")
     checks = ((col_mask, (H * H * W32, 50), torch.int32),
               (gx, (Bb, G), torch.int32), (gy, (Bb, G), torch.int32),
               (w0, (Bb, G), torch.int32),

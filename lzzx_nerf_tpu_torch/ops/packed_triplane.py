@@ -1,6 +1,7 @@
 """Dense nested-octave triplane with corner-packed lookup rows (port of
 lzzx_nerf_tpu/ops/packed_triplane.py: DenseTriplaneSpec, bake_packed,
-packed_lookup).
+packed_lookup; and encode_triplanes, the three-plane encoding of
+NeRFField.encode_x).
 
 A sample's features at every level come from ONE row of the packed table,
 keyed by its cell at the packing resolution; the bilinear combine runs per
@@ -11,7 +12,7 @@ dtype once, so a bf16 table holds exactly the bytes the JAX package bakes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -129,3 +130,13 @@ def dense_triplane_encode(packed: torch.Tensor, xy: torch.Tensor,
     """Map [-bound, bound] -> [0, 1] and look up a prebaked table."""
     u = (xy + bound) / (2.0 * bound)
     return packed_lookup(packed, u, spec)
+
+
+def encode_triplanes(pts: torch.Tensor, tables: Dict[str, torch.Tensor],
+                     spec: DenseTriplaneSpec, bound: float) -> torch.Tensor:
+    """pts [N, 3] in [-bound, bound] -> [N, 36] features of the three
+    planes' tables {"xy", "yz", "xz"}, planes in that order."""
+    planes = (("xy", pts[:, :2]), ("yz", pts[:, 1:]),
+              ("xz", torch.cat([pts[:, :1], pts[:, 2:]], dim=-1)))
+    return torch.cat([dense_triplane_encode(tables[p], q, spec, bound)
+                      for p, q in planes], dim=-1)

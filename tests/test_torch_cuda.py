@@ -15,6 +15,7 @@ from lzzx_nerf_tpu_torch import kernels
 from lzzx_nerf_tpu_torch.models import NeRFField
 from lzzx_nerf_tpu_torch.ops import fused_field as ff
 from lzzx_nerf_tpu_torch.ops import march2 as m2
+from lzzx_nerf_tpu_torch.ops import packed_triplane as pt
 from lzzx_nerf_tpu_torch.ops.march_select import (march_select_cuda,
                                                   march_select_reference)
 from lzzx_nerf_tpu_torch.ops.sh import sh_encode
@@ -28,26 +29,49 @@ def cuda():
     return torch.device("cuda:0")
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 5000, 70001])
-def test_field_kernel_matches_plain(cuda, n):
-    """Field kernel vs fused_field_reference: sigma to 1e-4 relative,
-    colors to 1e-5 absolute (float32 sums in another order)."""
-    g = torch.Generator().manual_seed(n)
+def _random_field(device, seed):
+    """A NeRFField with random weights and triplane levels (numpy seed),
+    its folded frame weights and its bf16 packed tables on `device`."""
+    rng = np.random.default_rng(seed)
     field = NeRFField(audio_in_dim=29, ind_num=8)
     with torch.no_grad():
-        for p in field.parameters():
-            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
-    field.to(cuda)
-    w = ff.extract_field_weights(field)
-    fw = ff.fold_frame_weights(w, torch.randn(1, 32, device=cuda) * 0.3,
-                               torch.randn(4, device=cuda) * 0.1,
-                               torch.tensor([0.3], device=cuda))
-    enc_x = (torch.randn(n, 36, generator=g) * 0.5).to(cuda)
-    d = torch.randn(n, 3, generator=g)
-    shd = sh_encode((d / d.norm(dim=-1, keepdim=True)).to(cuda)).contiguous()
+        for name, p in field.named_parameters():
+            scale = 0.5 if name.startswith("encoder_") else 0.2
+            p.copy_(torch.from_numpy(
+                rng.uniform(-scale, scale, p.shape).astype(np.float32)))
+    field.to(device)
+    fw = ff.fold_frame_weights(
+        ff.extract_field_weights(field),
+        torch.from_numpy(rng.normal(0, 0.3, (1, 32)).astype(np.float32)
+                         ).to(device),
+        torch.from_numpy(rng.normal(0, 0.1, 4).astype(np.float32)).to(device),
+        torch.tensor([0.3], device=device))
+    return field, fw, field.bake_tables(torch.bfloat16)
+
+
+def _points(n, seed, device, reach=1.2):
+    """n points in [-reach, reach]^3 (outside the box where reach > 1) and
+    unit directions, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-reach, reach, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(pts).to(device), torch.from_numpy(d).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 5000, 70001])
+def test_field_kernel_matches_plain(cuda, n):
+    """Field kernel (lookup + SH + MLP) vs field_reference, with points
+    inside and outside the box: sigma to 1e-4 relative, colors to 1e-5
+    absolute (float32 sums in another order; 3xTF32 products)."""
+    field, fw, tables = _random_field(cuda, n)
+    pts, d = _points(n, n + 1, cuda)
     before = kernels.launches["fused_field"]
-    out = ff.fused_field_cuda(enc_x, shd, ff.pack_frame_weights(fw))
-    ref = ff.fused_field_reference(fw, enc_x, shd)
+    out = ff.fused_field_cuda(pts, d, tables["xy"], tables["yz"],
+                              tables["xz"], field.bound,
+                              ff.pack_frame_weights(fw))
+    ref = ff.field_reference(fw, pts, d, tables, field.dense_spec,
+                             field.bound)
     torch.cuda.synchronize()
     assert kernels.launches["fused_field"] == before + 1
     assert torch.isfinite(out).all()
@@ -55,16 +79,103 @@ def test_field_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(out[:, 1:], ref[:, 1:], rtol=0, atol=1e-5)
 
 
+def test_field_kernel_outside_box(cuda):
+    """Points outside [-bound, bound] on every plane give zero features:
+    the kernel's output there equals the field at zero features."""
+    field, fw, tables = _random_field(cuda, 11)
+    pts, d = _points(4096, 12, cuda)
+    pts = torch.where(pts >= 0, pts + 1.5, pts - 1.5)
+    out = ff.fused_field_cuda(pts, d, tables["xy"], tables["yz"],
+                              tables["xz"], field.bound,
+                              ff.pack_frame_weights(fw))
+    zero = ff.fused_field_reference(fw, torch.zeros(4096, 36, device=cuda),
+                                    sh_encode(d, 4))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:, 0], zero[:, 0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[:, 1:], zero[:, 1:], rtol=0, atol=1e-5)
+
+
 def test_field_kernel_rejects_bad_inputs(cuda):
-    x = torch.zeros(8, 36, device=cuda)
-    s = torch.zeros(8, 16, device=cuda)
-    w = torch.zeros(ff.W_TOTAL, device=cuda)
-    with pytest.raises(ValueError):
-        ff.fused_field_cuda(x.double(), s, w)
-    with pytest.raises(ValueError):
-        ff.fused_field_cuda(x[:, :35], s, w)
-    with pytest.raises(ValueError):
-        ff.fused_field_cuda(x, s.t().contiguous().t(), w)
+    field, fw, tables = _random_field(cuda, 5)
+    pts, d = _points(8, 6, cuda)
+    w = ff.pack_frame_weights(fw)
+    xy, yz, xz = tables["xy"], tables["yz"], tables["xz"]
+    b = field.bound
+    bad = [
+        (pts.double(), d, xy, yz, xz, b, w),                      # dtype
+        (pts, d, xy.float(), yz, xz, b, w),                       # table dtype
+        (pts[:, :2].contiguous(), d, xy, yz, xz, b, w),           # shape
+        (pts, d[:7], xy, yz, xz, b, w),                           # rows
+        (pts, d, xy[:-1], yz, xz, b, w),                          # table shape
+        (pts, d, xy, yz, xz, b, w[:-1]),                          # weights
+        (pts.t().contiguous().t(), d, xy, yz, xz, b, w),          # strides
+        (pts.cpu(), d, xy, yz, xz, b, w),                         # device
+        (pts, d, xy, yz, xz, b,
+         torch.empty(ff.W_TOTAL + 1, device=cuda)[1:]),          # alignment
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ff.fused_field_cuda(*args)
+    # 2^31 samples: over the int32 sample count the kernel takes
+    big = torch.empty((2 ** 31, 3), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ff.fused_field_cuda(big, big, xy, yz, xz, b, w)
+
+
+def test_field_kernel_past_int32_offsets(cuda):
+    """At n = 750,000,000 samples, 3 n and 4 n (the float offsets of pts,
+    dirs and out) pass 2^31: the kernel's last rows, where they do, still
+    read and write their own samples."""
+    field, fw, tables = _random_field(cuda, 13)
+    n, m = 750_000_000, 4096
+    pts = torch.empty((n, 3), device=cuda)
+    d = torch.empty((n, 3), device=cuda)
+    pts[:] = torch.tensor([0.1, -0.2, 0.3], device=cuda)
+    d[:] = torch.tensor([0.0, 0.6, 0.8], device=cuda)
+    pts[-m:], d[-m:] = _points(m, 14, cuda)
+    out = ff.fused_field_cuda(pts, d, tables["xy"], tables["yz"],
+                              tables["xz"], field.bound,
+                              ff.pack_frame_weights(fw))
+    ref = ff.field_reference(fw, torch.cat([pts[:m], pts[-m:]]),
+                             torch.cat([d[:m], d[-m:]]), tables,
+                             field.dense_spec, field.bound)
+    got = torch.cat([out[:m], out[-m:]])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, 0], ref[:, 0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[:, 1:], ref[:, 1:], rtol=0, atol=1e-5)
+
+
+def test_fused_apply_runs_no_eager_lookup(cuda, monkeypatch):
+    """make_fused_apply on a CUDA device hands points and directions to the
+    field kernel: the triplane lookup and the SH basis run inside it, never
+    as eager ops (each eager path raises here), in one launch per call."""
+    from lzzx_nerf_tpu_torch.models import make_fused_apply
+
+    field, fw, tables = _random_field(cuda, 9)
+    pts, d = _points(1000, 10, cuda)
+    enc_a = torch.zeros(1, 32, device=cuda)
+    want = ff.field_reference(
+        ff.fold_frame_weights(ff.extract_field_weights(field), enc_a, None,
+                              None), pts, d, tables, field.dense_spec,
+        field.bound)
+
+    def eager(*a, **k):
+        raise AssertionError("eager lookup or SH basis on the kernel path")
+
+    for name in ("encode_triplanes", "sh_encode", "field_reference",
+                 "fused_field_reference"):
+        monkeypatch.setattr(ff, name, eager)
+    for name in ("encode_triplanes", "dense_triplane_encode",
+                 "packed_lookup"):
+        monkeypatch.setattr(pt, name, eager)
+    monkeypatch.setattr(NeRFField, "encode_x", eager)
+    apply = make_fused_apply(field, tables, enc_a, None, None)
+    before = kernels.launches["fused_field"]
+    sigma, color = apply(pts, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_field"] == before + 1
+    torch.testing.assert_close(sigma, want[:, 0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(color, want[:, 1:], rtol=0, atol=1e-5)
 
 
 def _blob_occ(grid, seed):
@@ -78,15 +189,24 @@ def _blob_occ(grid, seed):
     return torch.from_numpy(occ)[None]
 
 
-@pytest.mark.parametrize("grid,K2,S", [(32, 40, 16), (64, 45, 12),
-                                       (128, 82, 16), (128, 61, 32)])
-def test_march_select_kernel_equal_to_plain(cuda, grid, K2, S):
+@pytest.mark.parametrize("grid,K2,S,scene,bound", [
+    (32, 40, 16, "blobs", 1.0), (64, 45, 12, "blobs", 1.0),
+    (128, 82, 16, "blobs", 1.0), (128, 61, 32, "blobs", 1.0),
+    (128, 82, 1, "blobs", 1.0), (64, 90, 32, "blobs", 1.0),
+    (64, 82, 16, "blobs", 0.75), (64, 82, 16, "full", 1.0),
+    (64, 82, 16, "empty", 1.0)])
+def test_march_select_kernel_equal_to_plain(cuda, grid, K2, S, scene, bound):
     """Select kernel vs march_select_reference on camera blocks over a
-    blob scene: equal sample indices."""
-    occ = _blob_occ(grid, grid + K2).to(cuda)
+    blob scene, a full grid (every ray fills S early) and an empty grid
+    (no ray has a sample), with a power-of-two bound and without: equal
+    sample indices."""
+    occ = _blob_occ(grid, grid + K2)
+    if scene != "blobs":
+        occ = torch.full_like(occ, scene == "full")
+    occ = occ.to(cuda)
     table = m2.column_bitmasks_neighborhood5_words(occ)
     H = W = 128
-    bound, dt = 1.0, 2 * 3 ** 0.5 / grid
+    dt = 2 * 3 ** 0.5 / grid
     a = 0.2
     pose = torch.tensor([[np.cos(a), 0, np.sin(a), 0.03], [0, 1, 0, 0.0],
                          [-np.sin(a), 0, np.cos(a), -2.5], [0, 0, 0, 1]],
@@ -117,7 +237,13 @@ def test_march_select_kernel_equal_to_plain(cuda, grid, K2, S):
     got = march_select_cuda(*args)
     want = march_select_reference(*args)
     torch.cuda.synchronize()
-    assert (want >= 0).sum() > 1000
+    if scene == "empty":
+        assert (want < 0).all()
+    elif scene == "full":
+        # every ray with a slot and a long enough span fills all S slots
+        assert (want[:, -1] >= 0).sum() > 1000
+    else:
+        assert (want >= 0).sum() > 1000
     assert torch.equal(got, want)
 
 
@@ -125,20 +251,14 @@ def test_wrappers_launch_kernels_on_cuda(cuda):
     """On CUDA tensors the wrappers launch their kernels (one count each)
     and agree with the plain versions; they never run the plain version
     there."""
-    g = torch.Generator().manual_seed(7)
-    field = NeRFField(audio_in_dim=29, ind_num=8)
-    with torch.no_grad():
-        for p in field.parameters():
-            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
-    field.to(cuda)
-    fw = ff.fold_frame_weights(ff.extract_field_weights(field),
-                               torch.zeros(1, 32, device=cuda), None, None)
-    enc_x = (torch.randn(300, 36, generator=g) * 0.5).to(cuda)
-    d = torch.randn(300, 3, generator=g).to(cuda)
-    d = d / d.norm(dim=-1, keepdim=True)
+    field, fw, tables = _random_field(cuda, 7)
+    pts, d = _points(300, 8, cuda)
     before = dict(kernels.launches)
-    sig, col = ff.fused_field_eval(fw, enc_x, d)
-    sig_p, col_p = ff.fused_field_eval_reference(fw, enc_x, d)
+    sig, col = ff.fused_field_eval(fw, pts, d, tables, field.dense_spec,
+                                   field.bound)
+    ref = ff.field_reference(fw, pts, d, tables, field.dense_spec,
+                             field.bound)
+    sig_p, col_p = ref[:, 0], ref[:, 1:]
     occ = _blob_occ(32, 3).to(cuda)
     table = m2.column_bitmasks_neighborhood5_words(occ)
     z = torch.zeros((2, 3), dtype=torch.int32, device=cuda)

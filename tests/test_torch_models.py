@@ -23,6 +23,7 @@ from lzzx_nerf_tpu.ops import fused_field as jff
 from lzzx_nerf_tpu_torch.models import NeRFField as TField
 from lzzx_nerf_tpu_torch.models import TorsoField as TTorso
 from lzzx_nerf_tpu_torch.ops import fused_field as tff
+from lzzx_nerf_tpu_torch.ops.sh import sh_encode
 from lzzx_nerf_tpu_torch.serving.state_io import (TORSO_LEAF_PATHS,
                                                   load_trained_state,
                                                   params_from_jax)
@@ -209,15 +210,21 @@ def test_folded_field_matches_pallas_kernel(random_field):
         np.testing.assert_allclose(getattr(tw, name).numpy(),
                                    np.asarray(getattr(jw, name)),
                                    rtol=1e-6, atol=1e-9, err_msg=name)
-    ts, tc = tff.fused_field_eval(tw, _t(enc_x), _t(d))
-    _close(ts, js)
-    _close(tc, jc)
-    # the dense kernel weight vector holds exactly the folded weights
+    out = tff.fused_field_reference(tw, _t(enc_x), sh_encode(_t(d), 4))
+    _close(out[:, 0], js)
+    _close(out[:, 1:], jc)
+    # the kernel's weight vector holds exactly the folded weights, split
+    # into TF32 hi and lo parts
     wp = tff.pack_frame_weights(tw)
-    off, rows, cols, stride = tff._W_OFFSETS["sig2"]
-    np.testing.assert_array_equal(
-        wp[off:off + rows * stride].view(rows, stride)[:, :cols].numpy(),
-        np.asarray(jw.sig2))
+    hi, lo = tff.unpack_frame_weights(wp, "sig2")
+    want = np.array(jw.sig2)[:, 1:]             # geo columns
+    want_hi, want_lo = tff.tf32_split(torch.from_numpy(want))
+    np.testing.assert_array_equal(hi.numpy(), want_hi.numpy())
+    np.testing.assert_array_equal(lo.numpy(), want_lo.numpy())
+    np.testing.assert_allclose((hi + lo).numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(                # sigma column, float32
+        tff.unpack_frame_weights(wp, "sigma").numpy(),
+        np.asarray(jw.sig2)[:, 0])
     assert wp.numel() * 4 <= 227 * 1024
 
 
@@ -228,7 +235,11 @@ def test_field_wrapper_device_contract(random_field):
     pts, d, enc_a, ind, eye = _inputs(16, 3)
     tw = tff.fold_frame_weights(tff.extract_field_weights(tfield),
                                 _t(enc_a), _t(ind), _t(eye))
-    enc_x = tfield.encode_x(_t(pts), tfield.bake_tables())
+    tables = tfield.bake_tables(torch.bfloat16)
+    sigma, color = tff.fused_field_eval(tw, _t(pts), _t(d), tables,
+                                        tfield.dense_spec, tfield.bound)
+    assert sigma.shape == (16,) and color.shape == (16, 3)
     with pytest.raises(ValueError):
-        tff.fused_field_cuda(enc_x, torch.zeros(16, 16),
+        tff.fused_field_cuda(_t(pts), _t(d), tables["xy"], tables["yz"],
+                             tables["xz"], tfield.bound,
                              tff.pack_frame_weights(tw))
