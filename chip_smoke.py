@@ -8,21 +8,34 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel from csrc/ (cold or cached);
   3. session: loads trained/production_state.pkl without JAX and plans the
-     512² serving frame (K2, ray budget);
-  4. kernels: each kernel's wrapper on the inputs the main path gives it
-     (captured from the slice's frames: the field kernel at both of its
-     launch shapes, stage 1 and stage 2), against its plain PyTorch version
-     on the card — the march select must be equal, the field kernel
-     (triplane lookup + SH basis + MLP) within FIELD_TOL at every launch of
-     every frame, with its largest errors and the margin to FIELD_TOL per
-     stage — with kernel / plain-version times at the first frame's
-     shapes, the bounds and the share of each; the field library's SASS
-     must hold tensor-core (HMMA) instructions;
-  5. slice: 8 frames at 512² with torso through the session, launch counts
-     reset just before and read just after (each kernel must have
-     launched), frames/s, n_active; frame 0 rendered again through the
-     plain versions on the card must agree within FRAME_TOL.
-Then a "kernels" JSON line, and last the device JSON line.
+     512² serving frame over the state's 32 poses (K2, the bucket plan,
+     ray / short / long / eval / stage-2 budgets);
+  4. kernels: each kernel's wrapper on the inputs the main path gives it,
+     against its plain PyTorch version on the card, over 96 eager frames
+     (the 32 poses x 3 seeded audio windows): the march select equal at
+     every launch (both bucket shapes, K2s and K2), the field kernel
+     (triplane lookup + SH basis + MLP) within FIELD_TOL at every launch,
+     with its largest errors and their share of FIELD_TOL per stage shape
+     (stage 1 after the eval re-compaction, stage 2); then kernel /
+     plain-version times at the first frame's shapes, the bounds and the
+     share of each; the field library's SASS must hold tensor-core (HMMA)
+     instructions;
+  5. slice: the main path, --frames frames at 512² with torso through the
+     session's captured chunk program (CUDA graph), launch counts reset
+     just before and read just after (each kernel must have launched;
+     replays count the launches their capture recorded);
+  6. graph: the same frames through the eager chunk program, byte-equal
+     to the captured ones;
+  7. frame0: frame 0 rendered again through the plain versions on the card
+     must agree within FRAME_TOL;
+  8. fps: frames/s eager and captured over the trajectory;
+  9. escape: a session over 4 poses that starts with a ray budget below
+     its frames' demand warns, rebuilds at a chunk boundary, and renders
+     the frames after the rebuild byte-equal to a session built with the
+     plan it converged to;
+ 10. bench: a short run of python3 -m lzzx_nerf_tpu_torch.bench.
+Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
+line.
 """
 
 from __future__ import annotations
@@ -121,9 +134,39 @@ def field_errors(out_k, out_p) -> dict:
             "ok": fin and sig_share <= 1.0 and col_share <= 1.0}
 
 
+def select_bound(sel_p, a) -> tuple:
+    """The least time the select could take on one launch's inputs a (the
+    wrapper's arguments) with its plain output sel_p: (bound ms, bound by,
+    the bytes, the operations)."""
+    import torch
+
+    (table, gx, gy, w0, ro, rd, ts, te, sv, bound, dt, H, K2, S) = a[:14]
+    B = ro.shape[0]
+    W32 = H // 32
+    rows = ((gx.long() * H + gy.long()) * W32 + w0.long())
+    uniq = int(torch.unique(rows).numel())
+    nbytes = (B * (3 + 3 + 1 + 1) * 4 + B + gx.numel() * 3 * 4
+              + uniq * 50 * 4 + B * S * 4)
+    # candidates this run's data has the scan test: a ray stops after its
+    # S-th sample, else at the first k with k >= K2 or t >= t_end
+    k = torch.arange(2 * gx.shape[1], device=ro.device, dtype=torch.float32)
+    live = ((ts[:, None] + k[None] * dt < te[:, None]) & sv[:, None]
+            & (k[None] < K2)).sum(dim=1)
+    tested = int(torch.where(sel_p[:, -1] >= 0, sel_p[:, -1].long() + 1,
+                             live).sum())
+    # ~40 operations per tested candidate: t (2), three cells (3 x 9),
+    # the neighbourhood/word index (~8) and the bit test (~3)
+    ops = tested * 40.0
+    b = 1e3 * max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    return b, ("operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
+               else "bytes"), nbytes, ops
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=16,
+                    help="frames of the main-path run (whole chunks)")
+    ap.add_argument("--fps-frames", type=int, default=32)
     ap.add_argument("--state", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "trained",
         "production_state.pkl"))
@@ -137,7 +180,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch import bench, kernels
     from lzzx_nerf_tpu_torch.ops import fused_field as ff
     from lzzx_nerf_tpu_torch.ops import march2 as m2_mod
     from lzzx_nerf_tpu_torch.ops import march_select as ms
@@ -172,27 +215,40 @@ def main() -> int:
     sess = ServingSession(args.state, device=dev, chunk=8,
                           log=lambda m: log(f"[session] {m}"))
     torch.cuda.synchronize()
-    log(f"[session] 512² K2={sess.k2} budget={sess.budget} stage2="
-        f"{sess.stage2_budget} torso_pixels={int((sess.torso_plan.idx < sess.H * sess.W).sum())} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    P = len(sess.poses)
+    log(f"[session] 512² K2={sess.k2} bucket={sess.bucket} budget="
+        f"{sess.budget} long={sess.long_budget} eval={sess.eval_budget} "
+        f"stage2={sess.stage2_budget} torso_pixels="
+        f"{int((sess.torso_plan.idx < sess.H * sess.W).sum())} over {P} "
+        f"poses ({time.perf_counter() - t0:.1f} s)")
+    A = int(sess.meta["audio_dim"])
 
-    rng = np.random.default_rng(0)
-    F = args.frames
-    auds = rng.standard_normal((F, 8, 16, int(sess.meta["audio_dim"]))
-                               ).astype(np.float32)
-    eyes = [0.15 + 0.1 * np.sin(f / 4) for f in range(F)]
+    def stream(n, seed=0):
+        rng = np.random.default_rng(seed)
+        return (rng.standard_normal((n, 8, 16, A)).astype(np.float32),
+                [0.15 + 0.1 * np.sin(f / 4) for f in range(n)])
 
-    # ---- capture each kernel's inputs from the slice's frames: the first
-    # frame's are kept; every field launch is held to its plain version
+    # ---- every kernel launch of 96 eager frames (32 poses x 3 seeded
+    # audio windows) held to its plain version; the first frame's inputs
+    # are kept for the timings
     t0 = time.perf_counter()
-    captured = {"field": []}
+    n_win = 3
+    rng = np.random.default_rng(1)
+    windows = rng.standard_normal((n_win, 8, 16, A)).astype(np.float32)
+    auds96 = np.repeat(windows, P, axis=0)
+    eyes96 = [0.15 + 0.1 * np.sin(f / 4) for f in range(n_win * P)]
+    pose96 = [f % P for f in range(n_win * P)]
+    captured = {"field": [], "select": []}
     field_checks = []   # (N, field_errors) per field launch, in order
+    select_checks = []  # (G, equal, samples) per select launch
     orig_field, orig_select = ff.fused_field_eval, ms.march_select
+
+    def keep(a):
+        return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
 
     def cap_field(*a):
         if len(captured["field"]) < 2:
-            captured["field"].append(tuple(
-                x.clone() if torch.is_tensor(x) else x for x in a))
+            captured["field"].append(keep(a))
         out = orig_field(*a)
         fw, pts, dirs, tables, spec, bound = a[:6]
         out_p = ff.field_reference(fw, pts, dirs, tables, spec, bound)
@@ -201,51 +257,64 @@ def main() -> int:
         return out
 
     def cap_select(*a, **k):
-        captured.setdefault("select", tuple(
-            x.clone() if torch.is_tensor(x) else x for x in a))
-        return orig_select(*a, **k)
+        if len(captured["select"]) < 2:
+            captured["select"].append(keep(a))
+        out = orig_select(*a, **k)
+        ref = ms.march_select_reference(*a, **k)
+        select_checks.append((a[1].shape[1], bool(torch.equal(out, ref)),
+                              int((ref >= 0).sum())))
+        return out
 
     # march2 binds the select wrapper by name; make_fused_apply looks the
     # field wrapper up in its module at each call
     m2_mod.march_select = cap_select
     ff.fused_field_eval = cap_field
     try:
-        sess.render(auds, eyes)
+        sess.reset_audio()
+        run96 = sess.render(auds96, eyes96, pose_ids=pose96, graph=False)
     finally:
         m2_mod.march_select = orig_select
         ff.fused_field_eval = orig_field
-    sess.reset_audio()
     torch.cuda.synchronize()
-    log(f"[capture] field N={[c[1].shape[0] for c in captured['field']]} "
-        f"select B={captured['select'][4].shape[0]} "
-        f"G={captured['select'][1].shape[1]} "
+    field_n = [c[1].shape[0] for c in captured["field"]]
+    log(f"[capture] {len(run96['frames'])} eager frames ({P} poses x "
+        f"{n_win} audio windows): field N={field_n} "
+        f"select B={[c[4].shape[0] for c in captured['select']]} "
+        f"G={[c[1].shape[1] for c in captured['select']]} "
+        f"max n_stage2={max(run96['n_stage2'])}/{sess.stage2_budget} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     ok = sass_ok
 
-    # ---- kernel 1 over every frame: the largest errors per stage shape
-    # and their share of FIELD_TOL (the margin is its inverse)
+    # ---- kernel 1 at every launch: the largest errors per stage shape and
+    # their share of FIELD_TOL (the margin is its inverse)
     for n in dict.fromkeys(m for m, _ in field_checks):
         errs = [e for m, e in field_checks if m == n]
         f_ok = all(e["ok"] for e in errs)
         ok &= f_ok
-        cols = [float(f"{e['color']:.3g}") for e in errs]
         worst_c = max(e["color_share"] for e in errs)
         worst_s = max(e["sigma_share"] for e in errs)
-        log(f"[field] N={n} over {len(errs)} launches ({F} frames): "
-            f"color err per launch {cols} max share of tol {worst_c:.3f}; "
-            f"sigma err max {max(e['sigma'] for e in errs):.3g} max share "
-            f"of tol {worst_s:.3f} {'OK' if f_ok else 'FAIL'}")
+        log(f"[field] N={n} over {len(errs)} launches: color err max "
+            f"{max(e['color'] for e in errs):.3g} (median "
+            f"{float(np.median([e['color'] for e in errs])):.3g}) max share "
+            f"of tol {worst_c:.3f}; sigma err max "
+            f"{max(e['sigma'] for e in errs):.3g} max share of tol "
+            f"{worst_s:.3f} {'OK' if f_ok else 'FAIL'}")
+    for g in dict.fromkeys(g for g, _, _ in select_checks):
+        eq = [e for gg, e, _ in select_checks if gg == g]
+        ok &= all(eq)
+        log(f"[select] G={g}: equal at {sum(eq)} of {len(eq)} launches, "
+            f"{sum(n for gg, _, n in select_checks if gg == g)} samples "
+            f"{'OK' if all(eq) else 'FAIL'}")
 
     # ---- kernel 1: the field (triplane lookup + SH basis + MLP), at the
-    # frame's two launch shapes (stage 1, stage 2)
+    # frame's two launch shapes (stage 1 after the re-compaction, stage 2)
     field_rows = []
     for stage, (fw, pts, dirs, tables, spec, bound, wpack) in enumerate(
             captured["field"], 1):
         t0 = time.perf_counter()
         n = pts.shape[0]
         e = field_checks[stage - 1][1]   # this launch, held above
-        err = e["err"]
         xy, yz, xz = tables["xy"], tables["yz"], tables["xz"]
         flops = 2.0 * FIELD_MACS * n
         nbytes = (n * (3 + 3 + 4) * 4 + wpack.numel() * 4
@@ -257,77 +326,95 @@ def main() -> int:
             pts, dirs, xy, yz, xz, bound, wpack))
         ms_p = cuda_time_ms(lambda: ff.field_reference(
             fw, pts, dirs, tables, spec, bound), reps=5, warmup=1)
-        field_rows.append({"n": n, "err": err, "ms": ms_k, "plain_ms": ms_p,
-                           "bound_tc": b_tc, "bound_f32": b_f32,
+        field_rows.append({"n": n, "err": e["err"], "ms": ms_k,
+                           "plain_ms": ms_p, "bound_tc": b_tc,
+                           "bound_f32": b_f32,
                            "by": "operations" if b_tc > b_bytes
                            else "bytes"})
-        log(f"[kernel] fused_field stage {stage} N={n} max_abs_err={err:.3g} "
-            f"(color {e['color']:.3g}, sigma {e['sigma']:.3g}) "
-            f"ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+        log(f"[kernel] fused_field stage {stage} N={n} "
+            f"max_abs_err={e['err']:.3g} (color {e['color']:.3g}, sigma "
+            f"{e['sigma']:.3g}) ms={ms_k:.4f} plain_ms={ms_p:.4f} "
             f"bound_ms 3xTF32={b_tc:.4f} (share {b_tc / ms_k:.3f}) "
             f"f32-FMA={b_f32:.4f} (share {b_f32 / ms_k:.3f}) "
             f"{'OK' if e['ok'] else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
 
-    # ---- kernel 2: march select
-    t0 = time.perf_counter()
-    a = captured["select"]
-    (table, gx, gy, w0, ro, rd, ts, te, sv, bound, dt, H, K2, S) = a[:14]
-    sel_args = (table, gx.to(torch.int32).contiguous(),
-                gy.to(torch.int32).contiguous(),
-                w0.to(torch.int32).contiguous(), ro.contiguous(),
-                rd.contiguous(), ts.contiguous(), te.contiguous(),
-                sv.contiguous(), bound, dt, H, K2, S)
-    sel_k = ms.march_select(*sel_args)
-    sel_p = ms.march_select_reference(*sel_args)
-    torch.cuda.synchronize()
-    log(f"[occupancy] march_select at G={gx.shape[1]} S={S}: "
-        f"{kernels.info('march_select', gx.shape[1], S)}")
-    s_ok = bool(torch.equal(sel_k, sel_p))
-    ok &= s_ok
-    s_err = float((sel_k.long() - sel_p.long()).abs().max())
-    B = ro.shape[0]
-    W32 = H // 32
-    rows = ((gx.long() * H + gy.long()) * W32 + w0.long())
-    uniq = int(torch.unique(rows).numel())
-    s_bytes = (B * (3 + 3 + 1 + 1) * 4 + B + gx.numel() * 3 * 4
-               + uniq * 50 * 4 + B * S * 4)
-    # candidates this run's data has the scan test: a ray stops after its
-    # S-th sample, else at the first k with k >= K2 or t >= t_end
-    k = torch.arange(2 * gx.shape[1], device=dev, dtype=torch.float32)
-    live = ((ts[:, None] + k[None] * dt < te[:, None]) & sv[:, None]
-            & (k[None] < K2)).sum(dim=1)
-    tested = int(torch.where(sel_p[:, -1] >= 0, sel_p[:, -1].long() + 1,
-                             live).sum())
-    # ~40 operations per tested candidate: t (2), three cells (3 x 9),
-    # the neighbourhood/word index (~8) and the bit test (~3)
-    s_ops = tested * 40.0
-    s_bound = 1e3 * max(s_ops / PEAK_F32_FLOPS, s_bytes / PEAK_BYTES)
-    s_ms = cuda_time_ms(lambda: ms.march_select_cuda(*sel_args))
-    s_plain = cuda_time_ms(lambda: ms.march_select_reference(*sel_args),
-                           reps=5, warmup=1)
-    log(f"[kernel] march_select B={B} G={gx.shape[1]} S={S} equal={s_ok} "
-        f"samples={int((sel_k >= 0).sum())} ms={s_ms:.4f} "
-        f"plain_ms={s_plain:.4f} bound_ms={s_bound:.4f} "
-        f"(share {s_bound / s_ms:.3f}) "
-        f"{'OK' if s_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    # ---- kernel 2: march select, at both bucket shapes
+    sel_rows = []
+    for which, a in zip(("short", "long"), captured["select"]):
+        t0 = time.perf_counter()
+        (table, gx, gy, w0, ro, rd, ts, te, sv, bound, dt, H, K2, S) = a[:14]
+        sel_args = (table, gx.to(torch.int32).contiguous(),
+                    gy.to(torch.int32).contiguous(),
+                    w0.to(torch.int32).contiguous(), ro.contiguous(),
+                    rd.contiguous(), ts.contiguous(), te.contiguous(),
+                    sv.contiguous(), bound, dt, H, K2, S)
+        sel_k = ms.march_select(*sel_args)
+        sel_p = ms.march_select_reference(*sel_args)
+        torch.cuda.synchronize()
+        G = gx.shape[1]
+        log(f"[occupancy] march_select at G={G} S={S}: "
+            f"{kernels.info('march_select', G, S)}")
+        s_ok = bool(torch.equal(sel_k, sel_p))
+        ok &= s_ok
+        b, by, _, _ = select_bound(sel_p, sel_args)
+        s_ms = cuda_time_ms(lambda: ms.march_select_cuda(*sel_args))
+        s_plain = cuda_time_ms(lambda: ms.march_select_reference(*sel_args),
+                               reps=5, warmup=1)
+        sel_rows.append({"err": float((sel_k.long() - sel_p.long()).abs()
+                                      .max()) if sel_k.numel() else 0.0,
+                         "ms": s_ms, "plain_ms": s_plain, "bound": b,
+                         "by": by})
+        log(f"[kernel] march_select {which} B={ro.shape[0]} G={G} K2={K2} "
+            f"S={S} equal={s_ok} samples={int((sel_k >= 0).sum())} "
+            f"ms={s_ms:.4f} plain_ms={s_plain:.4f} bound_ms={b:.4f} "
+            f"({by}; share {b / s_ms:.3f}) {'OK' if s_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
-    # ---- the slice through the session, counters around it
+    # ---- the main path: the session's captured chunk program, counters
+    # around it
+    F = -(-args.frames // sess.chunk) * sess.chunk
+    auds, eyes = stream(F)
+    sess.reset_audio()
+    sess.render(auds[:sess.chunk], eyes[:sess.chunk])   # capture, warm up
     t0 = time.perf_counter()
     sess.reset_audio()
     kernels.reset_launches()
     res = sess.render(auds, eyes)
     launches = dict(kernels.launches)
-    fps = F / res["seconds"]
     frames_ok = (len(res["frames"]) == F and all(
         f.shape == (sess.H * sess.W * 3 // 2,) and f.dtype == np.uint8
         for f in res["frames"]))
     launched = all(v > 0 for v in launches.values())
-    ok &= frames_ok and launched
-    log(f"[slice] {F} frames 512² torso: {fps:.2f} frames/s "
-        f"({res['seconds']:.3f} s) n_active={res['n_active']} "
-        f"n_winmax={res['n_winmax']} n_stage2={res['n_stage2']} "
-        f"launches={launches} {'OK' if frames_ok and launched else 'FAIL'} "
+    counters_ok = (max(res["n_active"]) <= sess.budget
+                   and max(res["n_winmax"]) <= sess.k2
+                   and max(res["n_real"]) <= sess.eval_budget
+                   and max(res["n_long"]) <= sess.long_budget)
+    ok &= frames_ok and launched and counters_ok
+    log(f"[slice] {F} frames 512² torso, captured: "
+        f"{F / res['seconds']:.2f} frames/s ({res['seconds']:.3f} s) "
+        f"max n_active={max(res['n_active'])}/{sess.budget} "
+        f"n_winmax={max(res['n_winmax'])}/{sess.k2} "
+        f"n_real={max(res['n_real'])}/{sess.eval_budget} "
+        f"n_long={max(res['n_long'])}/{sess.long_budget} "
+        f"n_stage2={max(res['n_stage2'])}/{sess.stage2_budget} "
+        f"launches={launches} graph captures={sess.captures} "
+        f"{'OK' if frames_ok and launched and counters_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the same frames through the eager chunk program
+    t0 = time.perf_counter()
+    sess.reset_audio()
+    eager = sess.render(auds, eyes, graph=False)
+    same = [bool(np.array_equal(a, b))
+            for a, b in zip(eager["frames"], res["frames"])]
+    same_cnt = all(eager[k] == res[k] for k in ("n_active", "n_winmax",
+                                                "n_stage2", "n_real",
+                                                "n_short", "n_long"))
+    g_ok = all(same) and len(same) == F and same_cnt
+    ok &= g_ok
+    log(f"[graph] captured vs eager: {sum(same)} of {F} frames byte-equal, "
+        f"counters equal {same_cnt} {'OK' if g_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- frame 0 through the plain versions on the card
@@ -335,9 +422,8 @@ def main() -> int:
     sess.reset_audio()
     enc = sess.encode_audio(torch.as_tensor(auds[0], device=dev))
     eye0 = torch.tensor([eyes[0]], device=dev)
-    kern = sess.render_frame(sess.poses_dev[0], enc, eye0, use_kernels=True)
-    plain = sess.render_frame(sess.poses_dev[0], enc, eye0,
-                              use_kernels=False)
+    kern = sess.render_frame(0, enc, eye0, use_kernels=True)
+    plain = sess.render_frame(0, enc, eye0, use_kernels=False)
     torch.cuda.synchronize()
     img_err = float((kern["image"] - plain["image"]).abs().max())
     yuv_err = int((kern["yuv"].int() - plain["yuv"].int()).abs().max())
@@ -345,29 +431,103 @@ def main() -> int:
                                      res["frames"][0]))
     f0_ok = (img_err <= FRAME_TOL and yuv_err <= 1 and same_bytes
              and int(kern["n_active"]) == int(plain["n_active"])
+             and int(kern["n_real"]) == int(plain["n_real"])
              and bool(torch.isfinite(kern["image"]).all()))
     ok &= f0_ok
     log(f"[frame0] kernels vs plain: max_abs_err={img_err:.3g} "
         f"yuv_max_diff={yuv_err} same_as_slice={same_bytes} "
         f"n_active={int(kern['n_active'])}/{int(plain['n_active'])} "
+        f"n_real={int(kern['n_real'])}/{int(plain['n_real'])} "
         f"{'OK' if f0_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- frames/s, eager and captured, over the trajectory
+    t0 = time.perf_counter()
+    fa, fe = stream(-(-args.fps_frames // sess.chunk) * sess.chunk, seed=2)
+    fps = {}
+    for mode in (False, True, False, True):
+        sess.reset_audio()
+        r = sess.render(fa, fe, graph=mode)
+        fps.setdefault("captured" if mode else "eager", []).append(
+            len(fa) / r["seconds"])
+    log(f"[fps] {len(fa)} frames over the {P} poses, in turns: eager "
+        f"{', '.join(f'{v:.2f}' for v in fps['eager'])} frames/s, captured "
+        f"{', '.join(f'{v:.2f}' for v in fps['captured'])} frames/s "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- a forced escape: a ray budget below the frames' demand
+    t0 = time.perf_counter()
+    logs = []
+    small = ServingSession(args.state, device=dev, chunk=8,
+                           poses=sess.poses[:4], budget=65536,
+                           log=logs.append)
+    ea, ee = stream(24, seed=3)
+    r_small = small.render(ea, ee)
+    conv = ServingSession(args.state, device=dev, chunk=8,
+                          poses=sess.poses[:4], budget=small.budget,
+                          march_bucket=small.bucket or False,
+                          log=lambda m: None)
+    r_conv = conv.render(ea, ee)
+    warned = any("rebuilding with" in m for m in logs)
+    rebuilt = sum("rebuild at a chunk boundary" in m for m in logs)
+    after = all(np.array_equal(r_small["frames"][f], r_conv["frames"][f])
+                for f in range(16, 24))
+    cut = not np.array_equal(r_small["frames"][0], r_conv["frames"][0])
+    e_ok = (warned and rebuilt >= 1 and after and cut
+            and small.budget > 65536 and len(r_small["frames"]) == 24)
+    ok &= e_ok
+    log(f"[escape] budget 65536 -> {small.budget} (long "
+        f"{small.long_budget}, eval {small.eval_budget}) after "
+        f"{rebuilt} rebuild(s), {small.captures} captures; frames 16-23 "
+        f"equal to the converged session {after}, frame 0 cut {cut} "
+        f"{'OK' if e_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    for m in logs:
+        if "[WARN]" in m:
+            log(f"[escape]   {m}")
+    del small, conv
+
+    # ---- a short run of the port bench
+    t0 = time.perf_counter()
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--frames", "16"])
+    lines = buf.getvalue().strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+        b_ok = (rc == 0 and len(lines) == 1
+                and line["metric"] == "render_fps_512" and line["value"] > 0)
+    except (ValueError, KeyError, IndexError):
+        b_ok = False
+    ok &= b_ok
+    log(f"[bench] {lines} {'OK' if b_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # per frame: both field launches (stage 1, stage 2) and both select
+    # launches (short, long bucket) of the first frame, summed
+    def total(rows, key):
+        return sum(r[key] for r in rows)
 
     report = {"kernels": [
         {"name": "fused_field", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/fused_field.cu",
          "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
          "launches": launches["fused_field"],
-         "max_abs_err": max(r["err"] for r in field_rows),
-         "ms": field_rows[0]["ms"], "plain_ms": field_rows[0]["plain_ms"],
-         "bound_ms": field_rows[0]["bound_tc"],
+         "max_abs_err": max(e["err"] for _, e in field_checks),
+         "ms": total(field_rows, "ms"),
+         "plain_ms": total(field_rows, "plain_ms"),
+         "bound_ms": total(field_rows, "bound_tc"),
          "bound_by": field_rows[0]["by"], "library_ms": None},
         {"name": "march_select", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",
-         "launches": launches["march_select"], "max_abs_err": s_err,
-         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": "operations" if s_ops / PEAK_F32_FLOPS
-         >= s_bytes / PEAK_BYTES else "bytes", "library_ms": None},
+         "launches": launches["march_select"],
+         "max_abs_err": max(r["err"] for r in sel_rows),
+         "ms": total(sel_rows, "ms"), "plain_ms": total(sel_rows, "plain_ms"),
+         "bound_ms": total(sel_rows, "bound"),
+         "bound_by": max(sel_rows, key=lambda r: r["bound"])["by"],
+         "library_ms": None},
     ]}
     log(json.dumps(report))
     if not ok:

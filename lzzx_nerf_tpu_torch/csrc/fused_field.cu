@@ -498,13 +498,25 @@ extern "C" int fused_field_launch(const void* pts, const void* dirs,
                                   void* out, int n, float bound,
                                   void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  // the shared-memory opt-in and the SM count, set at the first launch on
+  // each device: later launches (a CUDA graph's capture among them) make
+  // no runtime call besides cudaGetDevice
+  static int sm_count[64];  // 0 until the device's first launch
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = cudaFuncSetAttribute(field_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sm_count[dev] = sms;
+  }
+  const int sms = sm_count[dev];
   const int steps = (n + kWarps * kRows - 1) / (kWarps * kRows);
   const int blocks = steps < sms ? steps : sms;
   field_kernel<<<blocks, kThreads, SMEM_BYTES, (cudaStream_t)stream>>>(

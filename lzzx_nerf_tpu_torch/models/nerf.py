@@ -147,12 +147,16 @@ class TorsoField(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, pose: torch.Tensor,
-                c: Optional[torch.Tensor], packed: torch.Tensor):
+                c: Optional[torch.Tensor], packed: torch.Tensor,
+                inv_pose_t: Optional[torch.Tensor] = None):
         """x [N, 2] in [-1, 1] screen coords, pose [4, 4] head c2w ->
-        (alpha [N, 1], color [N, 3], dx [N, 2])."""
+        (alpha [N, 1], color [N, 3], dx [N, 2]). inv_pose_t: the inverse
+        of pose.T when the caller has it (torch.linalg.inv checks its
+        result on the host, so a CUDA graph takes it as an input)."""
         N = x.shape[0]
         x = x * self.torso_shrink
-        inv_pose_t = torch.linalg.inv(pose.T)
+        if inv_pose_t is None:
+            inv_pose_t = torch.linalg.inv(pose.T)
         wrapped = self.anchor_points @ inv_pose_t               # [3, 4]
         wrapped = (wrapped[:, :2] / wrapped[:, 3:4]
                    / wrapped[:, 2:3]).reshape(1, -1)

@@ -7,7 +7,9 @@ per frame the renderer intersects 2x2-pixel blocks with the column z-slabs
 (prepass_block_hits), compacts the rest into a fixed budget (compact_rays)
 and marches them (march_rays_window_bitmask_nb_block). The host planners
 size the candidate count K2 and check the block march's drift envelope
-(resolve_march_plan).
+(resolve_march_plan), plan the short/long bucket march
+(measure_bucket_plan, bucket_short_budget) and count the blocks the eval
+re-compaction keeps (measure_real_blocks_host).
 
 Bit tables are stored as int32 tensors holding the uint32 bit patterns of
 the JAX package's tables (PyTorch's uint32 support is partial); a right
@@ -436,3 +438,142 @@ def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
             "envelope for this camera/grid; the per-ray march it would "
             "step down to is not ported yet")
     return k2
+
+
+def bucket_short_budget(n_short: int, budget: int, gran: int,
+                        margin: int = 64) -> int:
+    """The short-bucket budget: the measured short demand plus `margin`,
+    rounded up to the slot granularity and capped so the long bucket keeps
+    at least one granule. 0 when no valid carve exists (the caller then
+    marches one bucket)."""
+    if budget <= gran:
+        return 0
+    bs = min(budget - gran,
+             max(gran, -(-(n_short + margin) // gran) * gran))
+    return bs if 0 < bs < budget and bs % 4 == 0 else 0
+
+
+def measure_real_blocks_host(occ3, aabb, min_near: float, origin,
+                             d_blocks, t_start_blk, t_end_blk, active_blk,
+                             bound: float, dt: float, K2: int,
+                             chunk: int = 16384) -> int:
+    """Host-side exact count (numpy) of the real 2x2 blocks: blocks where
+    at least one of the 4 rays has a candidate in an occupied cell, which
+    sizes the eval re-compaction's budget (render_rays_compact_blocks
+    eval_budget). It runs the march's per-candidate test: each ray's
+    near-anchored dt lattice from its block's window, the candidate's cell
+    in occ3 [H, H, H], t <= t_end."""
+    occ3 = np.asarray(occ3)
+    Hg = occ3.shape[0]
+    idx = np.nonzero(np.asarray(active_blk))[0]
+    o = np.asarray(origin, np.float32)
+    lo = np.asarray(aabb[:3], np.float32)
+    hi = np.asarray(aabb[3:], np.float32)
+    d_blocks = np.asarray(d_blocks, np.float32)
+    t0_all = np.asarray(t_start_blk, np.float32)
+    t1_all = np.asarray(t_end_blk, np.float32)
+    ks = np.arange(K2, dtype=np.float32)
+    n_real = 0
+    for s in range(0, len(idx), chunk):
+        sel = idx[s:s + chunk]
+        d = d_blocks[sel]                                  # [b, 4, 3]
+        t0b = t0_all[sel][:, None]
+        t1b = t1_all[sel][:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / d
+        ta = (lo[None, None] - o[None, None]) * inv
+        tb = (hi[None, None] - o[None, None]) * inv
+        tmin = np.minimum(ta, tb).max(-1)                  # [b, 4]
+        tmax = np.maximum(ta, tb).min(-1)
+        near = np.maximum(tmin, min_near)
+        t_start = np.maximum(near, t0b)
+        k0 = np.ceil(np.maximum(t_start - near, 0.0) / dt - 1e-4)
+        t_start = near + k0 * dt
+        t_end = np.minimum(tmax, t1b)
+        t = t_start[..., None] + ks[None, None] * dt       # [b, 4, K2]
+        p = o[None, None, None] + t[..., None] * d[:, :, None, :]
+        p = np.clip(p, -bound, bound)
+        cell = np.clip(((p / bound + 1.0) * (0.5 * Hg)).astype(np.int32),
+                       0, Hg - 1)
+        hit = occ3[cell[..., 0], cell[..., 1], cell[..., 2]]
+        hit &= t <= t_end[..., None]
+        n_real += int(hit.any(axis=(1, 2)).sum())
+    return n_real
+
+
+def measure_bucket_plan(settings, z_lo, z_hi, col_dilwords, poses,
+                        intrinsics, H: int, W: int, K2: int,
+                        k2s_override: int = 0, pose_batch: int = 8,
+                        min_saving: float = 0.08, log=print):
+    """The short/long bucket plan of the group-2 block march over a
+    trajectory: prepass_block_spans over every pose (in batches of
+    `pose_batch`), the short bucket's candidate count K2s = the median
+    tightened span (made even, clamped to [max_steps, K2 - 2]), and the
+    worst per-pose short, long and admitted ray demands.
+
+    Returns (k2s, max_short_rays, max_long_rays, max_admit_rays); k2s == 0
+    means one bucket (the modeled saving sum(span <= K2s ? K2s : K2) is
+    under `min_saving`, or K2s would reach K2).
+
+    Diverges from the JAX package: `k2s_override` is validated — it must
+    be even, at least max_steps and below K2 — and raises ValueError
+    otherwise (the JAX version adopts any value unchecked)."""
+    from ..utils.rays import get_rays
+    from .ray import near_far_from_aabb
+
+    smax = int(settings.max_steps)
+    smax += smax % 2
+    if k2s_override and (k2s_override % 2 or k2s_override < settings.max_steps
+                         or k2s_override >= K2):
+        raise ValueError(
+            f"k2s_override {k2s_override} must be even, at least max_steps "
+            f"({settings.max_steps}) and below K2 ({K2})")
+    dev = z_lo.device
+    aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
+    poses = torch.as_tensor(np.asarray(poses, np.float32).reshape(-1, 4, 4),
+                            device=dev)
+    P = poses.shape[0]
+    adms, spans = [], []
+    for s in range(0, P, max(1, pose_batch)):
+        pb = poses[s:s + pose_batch]
+        rays = get_rays(pb, intrinsics, H, W)
+        _, d = block_view(rays["rays_d"], H, W)
+        o = rays["rays_o"][:, :1].expand(d.shape)
+        d2 = d.reshape(-1, 3)
+        o2 = o.reshape(-1, 3)
+        nears, fars = near_far_from_aabb(o2, d2, aabb, settings.min_near)
+        win = ray_windows(o2, d2, nears, fars, z_lo, z_hi, settings.bound,
+                          settings.dt, pad_steps=3.0)
+        hit, gf, gl = prepass_block_spans(o2, d2, win.t_start, win.t_end,
+                                          col_dilwords, settings.bound,
+                                          settings.dt, K2)
+        adms.append((hit & win.active).reshape(len(pb), -1).cpu().numpy())
+        spans.append((2 * (gl - gf + 1) + 2).reshape(len(pb), -1)
+                     .cpu().numpy())
+    adm = np.concatenate(adms)                              # [P, NB]
+    span = np.concatenate(spans)
+    flat = span[adm]
+    if not len(flat):
+        return 0, 0, 0, 0
+    if k2s_override:
+        k2s = k2s_override
+    else:
+        k2s = int(np.median(flat))
+        k2s += k2s % 2
+        k2s = max(smax, min(k2s, K2 - 2))
+        if k2s >= K2:   # the S floor meets K2: a split buys nothing
+            return 0, 0, 0, int(adm.sum(axis=1).max()) * 4
+        cost = int(np.where(flat <= k2s, k2s, K2).sum())
+        if cost > (1.0 - min_saving) * len(flat) * K2:
+            log(f"[INFO] bucket march: modeled saving "
+                f"{1 - cost / (len(flat) * K2):.1%} < {min_saving:.0%} "
+                f"(median span {int(np.median(flat))}, K2 {K2}) — "
+                "single-bucket march")
+            return 0, 0, 0, int(adm.sum(axis=1).max()) * 4
+    short = adm & (span <= k2s)
+    n_short = int(short.sum(axis=1).max()) * 4
+    n_long = int((adm & ~short).sum(axis=1).max()) * 4
+    n_adm = int(adm.sum(axis=1).max()) * 4
+    log(f"[INFO] bucket march plan: K2s={k2s} (short demand {n_short}, "
+        f"long {n_long}, admitted {n_adm} rays over {P} poses)")
+    return k2s, n_short, n_long, n_adm

@@ -15,11 +15,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.composite import exclusive_cumprod
+from ..ops.march import MarchResult
 from ..ops.march2 import (InferenceTables, block_view, compact_rays,
                           default_window_candidates,
                           march_rays_window_bitmask_nb_block,
-                          prepass_block_hits, ray_windows)
-from ..ops.composite import exclusive_cumprod
+                          prepass_block_hits, prepass_block_spans,
+                          ray_windows)
 from ..ops.ray import near_far_from_aabb
 from .state import OccupancyState, RenderSettings
 
@@ -31,6 +33,13 @@ def effective_infer_stage2_budget(budget: int, stage2_budget: int) -> int:
     """The stage-2 slot count the staged eval uses (0 selects the
     default)."""
     return stage2_budget or max(1024, budget // 4 // 1024 * 1024)
+
+
+def _repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x.repeat_interleave(k, dim=0) as a broadcast copy: no output-size
+    computation, so it records into a CUDA graph."""
+    return x.unsqueeze(1).expand(x.shape[0], k, *x.shape[1:]).reshape(
+        x.shape[0] * k, *x.shape[1:])
 
 
 def _scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
@@ -58,7 +67,7 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
         return sigma * settings.density_scale, color
 
     sig1, rgb1 = field_eval(m.xyzs[:, :S1].reshape(B * S1, 3),
-                            rd.repeat_interleave(S1, dim=0))
+                            _repeat_rows(rd, S1))
     sig1 = sig1.reshape(B, S1)
     rgb1 = rgb1.reshape(B, S1, 3)
     mask1 = m.mask[:, :S1]
@@ -80,7 +89,7 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
     mask2 = m.mask[:, S1:].index_select(0, idx2) & cs2.slot_valid[:, None]
 
     sig2, rgb2 = field_eval(xyz2.reshape(stage2_budget * S2, 3),
-                            rd2.repeat_interleave(S2, dim=0))
+                            _repeat_rows(rd2, S2))
     sig2 = sig2.reshape(stage2_budget, S2)
     rgb2 = rgb2.reshape(stage2_budget, S2, 3)
     alpha2 = (1.0 - torch.exp(-sig2 * delta2)) * mask2
@@ -111,25 +120,42 @@ def render_rays_compact_blocks(
     sample_budget: int = 0,
     eval_budget: int = 0,
     march_bucket: Optional[tuple] = None,
+    aabb: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     """Serving fast path with 2x2-pixel-block window analysis, the
     occupancy prepass (always on: the JAX package's march_prepass=True),
-    single-budget compaction and the group-2 block
-    march (variant nb5wp = the CUDA select kernel, nb5w = its plain
-    version). Returns image [H*W, 3], weights_sum, and the diagnostics
-    n_active (admitted rays, may exceed the budget), n_winmax (largest
-    candidate count an active block window needs) and n_stage2.
+    compaction into the ray budget, the group-2 block march (variant nb5wp
+    = the CUDA select kernel, nb5w = its plain version), the post-march
+    eval re-compaction and the staged eval.
 
-    Not ported yet, and refused rather than ignored: the short/long bucket
-    split (march_bucket), the post-march eval re-compaction (eval_budget),
-    stage-1 sample compaction (sample_budget), march groups other than 2
-    and the single-pass (stage_split=0) composite."""
-    if march_bucket is not None:
-        raise NotImplementedError("march_bucket (short/long bucket split) "
-                                  "is not ported yet")
-    if eval_budget:
-        raise NotImplementedError("eval_budget (post-march re-compaction) "
-                                  "is not ported yet")
+    march_bucket = (K2s, short_budget): the short/long bucket march. Each
+    block's window is tightened to its prepass span (a shift by whole
+    candidate groups, so every sample keeps its lattice position); blocks
+    whose span needs at most K2s candidates march in a short bucket of
+    short_budget rays at K2s, the rest (and shorts beyond short_budget,
+    which spill) in a long bucket of budget - short_budget rays at K2.
+
+    eval_budget (rays, < budget to take effect): after the march, only
+    blocks with at least one sample go on to the field eval, compacted
+    into eval_budget // 4 blocks; a block with no sample composes to
+    background either way.
+
+    aabb: settings.aabb as a [6] float32 tensor on the rays' device, made
+    here when not given (a caller that records the frame into a CUDA
+    graph passes it: a host-to-device copy cannot run while a graph
+    records).
+
+    Returns image [H*W, 3], weights_sum, and the diagnostics n_active
+    (admitted rays, may exceed the budget), n_winmax (largest candidate
+    count an active block window needs), n_stage2, with a bucket n_short
+    (short demand) and n_long (long-bucket rays, spilled shorts included),
+    with the re-compaction n_real (rays of real blocks); and, in slot
+    order, march_mask / march_ts (the marched samples as they reach the
+    eval) with slot_block / slot_valid (each slot's block index).
+
+    Not ported yet, and refused rather than ignored: stage-1 sample
+    compaction (sample_budget), march groups other than 2 and the
+    single-pass (stage_split=0) composite."""
     if sample_budget:
         raise NotImplementedError("sample_budget (stage-1 sample "
                                   "compaction) is not ported yet")
@@ -147,50 +173,122 @@ def render_rays_compact_blocks(
     N = H * W
     NB = N // 4
     S = settings.max_steps
+    dt = settings.dt
     K2 = window_candidates or default_window_candidates(
-        settings.bound, settings.grid_size, settings.dt)
+        settings.bound, settings.grid_size, dt)
     budget_b = budget // 4
-    aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
+    if aabb is None:
+        aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
+    if march_bucket is not None:
+        K2s, short_budget = march_bucket
+        if not 0 < short_budget < budget or short_budget % 4:
+            raise ValueError(
+                f"march_bucket short budget {short_budget} must be a "
+                f"multiple of 4 in (0, {budget})")
+        if K2s < S:
+            raise ValueError(
+                f"march_bucket K2s ({K2s}) cannot be below max_steps ({S})")
 
     d_blocks, d_center = block_view(rays_d, H, W)
     o_center = rays_o_origin.expand(d_center.shape)
     nears_b, fars_b = near_far_from_aabb(o_center, d_center, aabb,
                                          settings.min_near)
     win = ray_windows(o_center, d_center, nears_b, fars_b, tables.z_lo,
-                      tables.z_hi, settings.bound, settings.dt,
-                      pad_steps=3.0)
-    active = win.active & prepass_block_hits(
-        o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
-        settings.bound, settings.dt, K2)
-    steps = torch.ceil((win.t_end - win.t_start) / settings.dt)
+                      tables.z_hi, settings.bound, dt, pad_steps=3.0)
+    if march_bucket is not None:
+        hit, g_first, g_last = prepass_block_spans(
+            o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
+            settings.bound, dt, K2)
+    else:
+        hit = prepass_block_hits(o_center, d_center, win.t_start, win.t_end,
+                                 tables.col_dilwords, settings.bound, dt, K2)
+    active = win.active & hit
+    steps = torch.ceil((win.t_end - win.t_start) / dt)
     n_winmax = torch.where(win.active, steps,
                            torch.zeros_like(steps)).max().to(torch.int64) + 1
 
-    # compact the admitted blocks, then re-anchor each ray's window on its
-    # own near-based dt lattice
-    cs = compact_rays(active, budget_b)
-    cols = torch.cat([d_blocks.reshape(NB, 12), win.t_start[:, None],
-                      win.t_end[:, None], d_center], dim=-1)
-    rows = cols.index_select(0, cs.ray_idx)                     # [Bb, 17]
-    rd = rows[:, :12].reshape(budget_b * 4, 3)
-    t0_blk = rows[:, 12]
-    t0b = t0_blk.repeat_interleave(4)
-    t1b = rows[:, 13].repeat_interleave(4)
-    dc = rows[:, 14:17]
-    ro = rays_o_origin.expand(rd.shape)
-    sv = cs.slot_valid.repeat_interleave(4)
-    nears_r, fars_r = near_far_from_aabb(ro, rd, aabb, settings.min_near)
-    t_start = torch.maximum(nears_r, t0b)
-    k0 = torch.ceil(torch.clamp(t_start - nears_r, min=0.0) / settings.dt
-                    - 1e-4)
-    t_start = nears_r + k0 * settings.dt
-    t_end = torch.minimum(fars_r, t1b)
-    m = march_rays_window_bitmask_nb_block(
-        ro.contiguous(), rd, t_start, t_end, sv, t0_blk, dc,
-        tables.col_nb5wmask, settings.bound, settings.dt, K2, S,
-        variant=march_variant)
+    # each block's window, tightened to its prepass span in the bucketed
+    # march: groups before g_first / after g_last hold no occupied
+    # candidate, and the shift is a whole number of groups
+    t0_all, t1_all = win.t_start, win.t_end
+    if march_bucket is not None:
+        gf = g_first.to(torch.float32)
+        gl = g_last.to(torch.float32)
+        t0_all = win.t_start + (2.0 * dt) * gf
+        t1_all = torch.minimum(win.t_end, win.t_start + (2.0 * gl + 2.0) * dt)
+    cols = torch.cat([d_blocks.reshape(NB, 12), t0_all[:, None],
+                      t1_all[:, None], d_center], dim=-1)
+
+    def march_blocks(cs, nb: int, k2: int):
+        """Gather one compacted set's block rows, re-anchor each ray's
+        window on its own near-based dt lattice, march at k2 candidates."""
+        rows = cols.index_select(0, cs.ray_idx)                 # [nb, 17]
+        rd_ = rows[:, :12].reshape(nb * 4, 3)
+        t0_blk = rows[:, 12]
+        t0b = _repeat_rows(t0_blk, 4)
+        t1b = _repeat_rows(rows[:, 13], 4)
+        dc = rows[:, 14:17]
+        ro = rays_o_origin.expand(rd_.shape)
+        sv = _repeat_rows(cs.slot_valid, 4)
+        nears_r, fars_r = near_far_from_aabb(ro, rd_, aabb, settings.min_near)
+        t_start = torch.maximum(nears_r, t0b)
+        k0 = torch.ceil(torch.clamp(t_start - nears_r, min=0.0) / dt - 1e-4)
+        t_start = nears_r + k0 * dt
+        t_end = torch.minimum(fars_r, t1b)
+        return rd_, march_rays_window_bitmask_nb_block(
+            ro.contiguous(), rd_, t_start, t_end, sv, t0_blk, dc,
+            tables.col_nb5wmask, settings.bound, dt, k2, S,
+            variant=march_variant)
+
+    diag: Dict[str, Any] = {}
+    if march_bucket is not None:
+        Bs_b = short_budget // 4
+        Bl_b = budget_b - Bs_b
+        span = 2 * (g_last - g_first + 1) + 2
+        short = active & (span <= K2s)
+        rank_s = torch.cumsum(short.to(torch.int64), dim=0)
+        slotted_s = short & (rank_s <= Bs_b)
+        long_ = (active & ~short) | (short & ~slotted_s)
+        cs_s = compact_rays(slotted_s, Bs_b)
+        cs_l = compact_rays(long_, Bl_b)
+        rd_s, m_s = march_blocks(cs_s, Bs_b, K2s)
+        rd_l, m_l = march_blocks(cs_l, Bl_b, K2)
+        m = MarchResult(*(torch.cat([a, b]) for a, b in zip(m_s, m_l)))
+        rd = torch.cat([rd_s, rd_l])
+        blk_idx = torch.cat([cs_s.ray_idx, cs_l.ray_idx])
+        blk_valid = torch.cat([cs_s.slot_valid, cs_l.slot_valid])
+        n_active = (cs_s.n_active + cs_l.n_active) * 4
+        diag["n_short"] = rank_s[-1] * 4
+        diag["n_long"] = cs_l.n_active * 4
+    else:
+        cs = compact_rays(active, budget_b)
+        rd, m = march_blocks(cs, budget_b, K2)
+        blk_idx, blk_valid = cs.ray_idx, cs.slot_valid
+        n_active = cs.n_active * 4
+
+    # post-march re-compaction: only blocks with a sample reach the eval;
+    # overflowing ones render as background and show in n_real
+    if eval_budget and eval_budget // 4 < budget_b:
+        eb = max(1, eval_budget // 4)
+        realb = m.mask.reshape(budget_b, 4 * S).any(dim=1) & blk_valid
+        csr = compact_rays(realb, eb)
+        diag["n_real"] = csr.n_active * 4
+        sel, keep = csr.ray_idx, csr.slot_valid
+
+        def take_rows(a):
+            return a.reshape((budget_b, 4) + a.shape[1:]).index_select(
+                0, sel).reshape((eb * 4,) + a.shape[1:])
+
+        kept = _repeat_rows(keep, 4)[:, None]
+        m = MarchResult(xyzs=take_rows(m.xyzs), deltas=take_rows(m.deltas),
+                        ts=take_rows(m.ts), mask=take_rows(m.mask) & kept)
+        rd = take_rows(rd)
+        blk_idx = blk_idx.index_select(0, sel)
+        blk_valid = keep & blk_valid.index_select(0, sel)
+        budget_b = eb
 
     B = budget_b * 4
+    # the stage-2 slots follow the ray budget, as in the JAX package
     b2 = effective_infer_stage2_budget(budget, stage2_budget)
     image_c, wsum_c, n_stage2 = _staged_eval_composite(
         field_apply, settings, m, rd, B, S, min(stage_split, S), b2)
@@ -198,18 +296,18 @@ def render_rays_compact_blocks(
     # scatter per block: 16-wide rows (4 rays x (rgb + wsum))
     payload = torch.cat([image_c.reshape(budget_b, 12),
                          wsum_c.reshape(budget_b, 4)], dim=-1)
-    acc = _scatter_add_rows(torch.zeros((NB, 16), device=dev), cs.ray_idx,
-                            cs.slot_valid, payload)
+    acc = _scatter_add_rows(torch.zeros((NB, 16), device=dev), blk_idx,
+                            blk_valid, payload)
     img_acc = acc[:, :12].reshape(H // 2, W // 2, 2, 2, 3).permute(
         0, 2, 1, 3, 4).reshape(N, 3)
     wsum = acc[:, 12:16].reshape(H // 2, W // 2, 2, 2).permute(
         0, 2, 1, 3).reshape(N)
     image = torch.clamp(img_acc + (1.0 - wsum)[:, None] * bg_color, 0.0, 1.0)
-    return {"image": image, "weights_sum": wsum,
-            "n_active": cs.n_active * 4, "n_winmax": n_winmax,
-            "n_stage2": n_stage2,
-            # the march's sample masks, slot-ordered like the budget
-            "march_mask": m.mask}
+    return {"image": image, "weights_sum": wsum, "n_active": n_active,
+            "n_winmax": n_winmax, "n_stage2": n_stage2, **diag,
+            # the samples as they reach the eval, slot-ordered
+            "march_mask": m.mask, "march_ts": m.ts,
+            "slot_block": blk_idx, "slot_valid": blk_valid}
 
 
 # ---- torso --------------------------------------------------------------

@@ -24,10 +24,10 @@ def get_rays(poses: torch.Tensor, intrinsics, H: int, W: int
              ) -> Dict[str, torch.Tensor]:
     """All H*W rays of each pose. poses [B, 4, 4] c2w -> dict(rays_o,
     rays_d [B, H*W, 3])."""
-    B = poses.shape[0]
     dev = poses.device
-    fx, fy, cx, cy = [torch.tensor(float(v), dtype=torch.float32, device=dev)
-                      for v in intrinsics]
+    # float32 values as Python scalars: no host-to-device copy, so the
+    # frame records into a CUDA graph
+    fx, fy, cx, cy = [float(np.float32(v)) for v in intrinsics]
     inds = torch.arange(H * W, device=dev)
     i = (inds % W).to(torch.float32) + 0.5
     j = torch.div(inds, W, rounding_mode="floor").to(torch.float32) + 0.5

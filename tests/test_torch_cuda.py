@@ -276,3 +276,34 @@ def test_wrappers_launch_kernels_on_cuda(cuda):
     torch.testing.assert_close(sig, sig_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(col, col_p, rtol=0, atol=1e-5)
     assert torch.equal(sel, sel_p)
+
+
+def test_session_graph_equals_eager(cuda):
+    """The session's chunk program captured as a CUDA graph renders the
+    eager program's bytes and counters (128², pose 0, a padded tail
+    chunk); its replays count the launches the capture recorded."""
+    import os
+
+    from lzzx_nerf_tpu_torch.serving import ServingSession
+    from lzzx_nerf_tpu_torch.serving.state_io import load_trained_state
+
+    state = os.path.join(os.path.dirname(__file__), "..", "trained",
+                         "production_state.pkl")
+    poses = load_trained_state(state)["meta"]["poses"][:1]
+    s = ServingSession(state, device=cuda, res=128, poses=poses, chunk=2,
+                       log=lambda m: None)
+    rng = np.random.default_rng(4)
+    auds = rng.standard_normal((5, 8, 16, 29)).astype(np.float32)
+    eyes = [0.2 + 0.03 * f for f in range(5)]
+    eager = s.render(auds, eyes, graph=False)
+    s.reset_audio()
+    kernels.reset_launches()
+    cap = s.render(auds, eyes, graph=True)
+    assert s.captures == 1
+    for a, b in zip(eager["frames"], cap["frames"]):
+        np.testing.assert_array_equal(a, b)
+    for k in ("n_active", "n_winmax", "n_stage2", "n_real", "n_long"):
+        assert eager[k] == cap[k]
+    # the warm-up frame of the capture, then 3 chunks of 2 frames:
+    # 2 field and 2 select launches a frame
+    assert kernels.launches == {"fused_field": 2 * 7, "march_select": 2 * 7}

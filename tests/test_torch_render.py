@@ -308,52 +308,93 @@ def test_session_device_default_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.fixture(scope="module")
-def session128():
+def _session128(**kw):
     from lzzx_nerf_tpu_torch.serving import ServingSession
 
     st = load_trained_state(STATE)
-    return ServingSession(STATE, device="cpu", res=128,
-                          poses=st["meta"]["poses"][:1], log=lambda m: None)
+    return ServingSession(STATE, device="cpu", res=128, chunk=2,
+                          poses=st["meta"]["poses"][:1], **kw)
 
 
-@pytest.mark.parametrize("limit", ["budget", "k2"])
-def test_session_raises_on_overflow(session128, limit):
-    """A frame that admits more rays than the session's budget, or whose
-    window needs more candidates than its K2, raises: the rebuild escapes
-    are not ported, and an overflow is never rendered as background
-    without a word."""
-    s = session128
-    auds = np.zeros((1, 8, 16, 29), np.float32)
-    out = s.render(auds, [0.25])
-    assert out["n_active"][0] <= s.budget and out["n_winmax"][0] <= s.k2
-    saved = s.budget, s.k2
-    try:
-        if limit == "budget":
-            s.budget = 1024
-            assert out["n_active"][0] > s.budget
-            match = "ray budget"
-        else:
-            s.k2 = 20
-            assert out["n_winmax"][0] > s.k2
-            match = "march candidates"
-        s.reset_audio()
-        with pytest.raises(RuntimeError, match=match):
-            s.render(auds, [0.25])
-    finally:
-        s.budget, s.k2 = saved
+@pytest.fixture(scope="module")
+def frames128():
+    """Six frames of the measured 128² session (pose 0, chunk 2, bucket
+    and eval on): the session every rebuild case converges to, unless the
+    case fixes a plan of its own."""
+    auds = np.random.default_rng(21).standard_normal(
+        (6, 8, 16, 29)).astype(np.float32)
+    eyes = [0.25 + 0.02 * f for f in range(6)]
+    s = _session128(log=lambda m: None)
+    return auds, eyes, s, s.render(auds, eyes)
+
+
+@pytest.mark.parametrize("limit", ["budget", "k2", "eval", "long"])
+def test_session_raises_on_overflow(frames128, limit):
+    """(Named for the raise it replaced.) A frame that needs more than the
+    session's plan holds — admitted rays over the ray budget, a window over
+    K2, real rays over the eval budget, long-bucket rays over the long
+    budget — no longer raises: as in the JAX session
+    (tests/test_serving.py: adaptive budget, K2 and eval escapes), the
+    session warns, streams every frame, and rebuilds at the next chunk
+    boundary; the frames after the rebuild (chunk 3: frames 4, 5) equal a
+    session built with the plan it converged to, and an early frame was
+    visibly cut."""
+    auds, eyes, ctrl, ref = frames128
+    n_long = ref["n_long"][0]
+    start = {"budget": dict(budget=1024), "k2": dict(k2=20),
+             "eval": dict(eval_budget=256),
+             # a short bucket that leaves the long bucket one granule
+             "long": dict(march_bucket=(ctrl.bucket[0], ctrl.budget - 256),
+                          budget=ctrl.budget)}[limit]
+    logs = []
+    s = _session128(log=logs.append, **start)
+    out = s.render(auds, eyes)
+    warn = {"budget": "active rays exceed budget 1024",
+            "k2": "march candidates > K2=20",
+            "eval": "real-sample rays exceed eval budget 256",
+            "long": f"{n_long} long-bucket rays exceed the long budget 256"
+            }[limit]
+    assert any(warn in m and "rebuilding" in m for m in logs), logs
+    assert len(out["frames"]) == 6
+    assert sum("rebuild at a chunk boundary" in m for m in logs) == 1
+    if limit == "budget":
+        assert s.budget >= max(out["n_active"])
+    elif limit == "k2":
+        assert s.k2 == ctrl.k2 > max(out["n_winmax"])
+    elif limit == "eval":
+        assert s.eval_budget == ctrl.eval_budget >= max(out["n_real"])
+    else:
+        assert s.long_budget >= n_long and s.bucket == start["march_bucket"]
+    if limit in ("k2", "eval"):
+        # the plan it converged to is the measured one
+        conv, conv_out = ctrl, ref
+    else:
+        conv = _session128(log=lambda m: None, budget=s.budget,
+                           march_bucket=s.bucket or False)
+        conv_out = conv.render(auds, eyes)
+    assert (conv.budget, conv.k2, conv.eval_budget, conv.bucket) == (
+        s.budget, s.k2, s.eval_budget, s.bucket)
+    for f in (4, 5):
+        np.testing.assert_array_equal(out["frames"][f], conv_out["frames"][f])
+    assert not np.array_equal(out["frames"][0], conv_out["frames"][0])
 
 
 @pytest.mark.slow
 def test_trained_frame_512_matches_jax():
-    """The 512² trained-state frame (pose 0): the port's session against
-    the JAX renderer at the same K2 and budget."""
+    """The 512² trained-state frame (pose 0) with the session's plan —
+    measured over the state's 32 poses, bucket march and eval
+    re-compaction on: the port's session against the JAX renderer at the
+    same K2, budgets and bucket plan. Counters (n_active, n_winmax,
+    n_stage2, n_short, n_long, n_real) and the march masks are equal; the
+    image agrees to IMG_ATOL with at most one yuv level."""
     from lzzx_nerf_tpu_torch.serving import ServingSession
+    from test_torch_bucket import jax_march_masks
 
     s = ServingSession(STATE, device="cpu", log=lambda m: None)
+    assert s.bucket is not None and 0 < s.eval_budget < s.budget
     rng = np.random.default_rng(0)
     auds = rng.standard_normal((1, 8, 16, 29)).astype(np.float32)
-    tout = s.render_frame(s.poses_dev[0], s.encode_audio(_t(auds[0])),
+    tout = s.render_frame(0, s.encode_audio(_t(auds[0])),
                           torch.tensor([0.25]))
     with open(STATE, "rb") as f:
         jst = pickle.load(f)
@@ -390,10 +431,20 @@ def test_trained_frame_512_matches_jax():
         jnp.asarray([0.25]), frame_bg, budget=s.budget,
         window_candidates=s.k2, tables=jtables, stage_split=8,
         stage2_budget=s.stage2_budget, march_group=2, march_variant="nb5w",
-        march_prepass=True)
-    assert int(tout["n_active"]) == int(out["n_active"])
-    assert int(tout["n_stage2"]) == int(out["n_stage2"])
-    np.testing.assert_allclose(
-        tout["image"].numpy(),
-        np.clip(np.asarray(out["image"]).reshape(512, 512, 3), 0, 1),
-        rtol=0, atol=IMG_ATOL)
+        march_prepass=True, march_bucket=s.bucket,
+        eval_budget=s.eval_budget)
+    for k in ("n_active", "n_winmax", "n_stage2", "n_short", "n_long",
+              "n_real"):
+        assert int(tout[k]) == int(out[k]), k
+    assert int(tout["n_long"]) <= s.long_budget
+    assert int(tout["n_real"]) <= s.eval_budget
+    jmask = jax_march_masks(jset, jtables, rays["rays_o"][0][0],
+                            rays["rays_d"][0], 512, 512, s.budget, s.k2,
+                            s.bucket, s.eval_budget)
+    np.testing.assert_array_equal(tout["march_mask"].numpy(), jmask)
+    img_j = np.clip(np.asarray(out["image"]).reshape(512, 512, 3), 0, 1)
+    np.testing.assert_allclose(tout["image"].numpy(), img_j, rtol=0,
+                               atol=IMG_ATOL)
+    yd = np.abs(tout["yuv"].numpy().astype(np.int32)
+                - np.asarray(j_yuv(jnp.asarray(img_j))).astype(np.int32))
+    assert yd.max() <= 1

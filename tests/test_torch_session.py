@@ -1,0 +1,110 @@
+"""The port's serving session on the CPU at 128² (trained state, pose 0):
+the measured plan, the masked smooth-lips carry, the chunk program's
+padded tail, and the port bench.
+
+The carry is the JAX session's masked EMA: enc = where(has_prev > 0,
+0.35 prev + 0.65 new, new), advanced only for valid frames, so a reset
+stream renders what a fresh session renders and the padded tail of a
+chunk changes nothing. Frames are compared byte for byte."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lzzx_nerf_tpu_torch import bench
+from lzzx_nerf_tpu_torch.serving import ServingSession
+from lzzx_nerf_tpu_torch.serving.state_io import load_trained_state
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+STATE = os.path.join(REPO, "trained", "production_state.pkl")
+
+
+def _session(**kw):
+    poses = load_trained_state(STATE)["meta"]["poses"][:1]
+    kw = {"chunk": 2, "log": lambda m: None, **kw}
+    return ServingSession(STATE, device="cpu", res=128, poses=poses, **kw)
+
+
+def _inputs(n, seed=5):
+    rng = np.random.default_rng(seed)
+    auds = rng.standard_normal((n, 8, 16, 29)).astype(np.float32)
+    return auds, [0.2 + 0.05 * f for f in range(n)]
+
+
+def test_session_plan_holds_its_frames():
+    """The measured plan (bucket on, eval on) holds the frames of its own
+    poses: admitted rays, long-bucket rays and real rays within their
+    budgets, so no escape fires; the eval budget is the host-measured real
+    rays x 1.25 rounded up to the granule; the stage-2 budget is 0.375 of
+    the ray budget, in 1024-slot steps (the JAX session's)."""
+    logs = []
+    s = _session(log=logs.append)
+    assert s.bucket is not None and s.bucket[0] >= 16
+    assert 0 < s.eval_budget < s.budget
+    assert s.long_budget == s.budget - s.bucket[1]
+    assert s.stage2_budget == max(1024, int(s.budget * 0.375) // 1024 * 1024)
+    auds, eyes = _inputs(2)
+    out = s.render(auds, eyes)
+    assert max(out["n_active"]) <= s.budget
+    assert max(out["n_long"]) <= s.long_budget
+    assert 0 < max(out["n_real"]) <= s.eval_budget
+    assert s.eval_budget == -(-int(max(out["n_real"]) * 1.25)
+                              // s.gran) * s.gran
+    # pose 0 overflows the stage-2 budget at 128² (a warning of its own,
+    # no escape); nothing else warns
+    assert not [m for m in logs if "[WARN]" in m and "stage-2" not in m]
+    assert not [m for m in logs if "rebuild" in m]
+    assert any(m.startswith("plan: K2=") and "eval_budget=" in m
+               for m in logs)
+
+
+def test_masked_ema_after_reset_equals_fresh_session():
+    auds, eyes = _inputs(3)
+    s = _session()
+    s.render(auds[::-1].copy(), eyes)
+    s.reset_audio()
+    again = s.render(auds, eyes)["frames"]
+    fresh = _session().render(auds, eyes)["frames"]
+    for a, b in zip(again, fresh):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_chunk_tail_does_not_advance_the_carry():
+    """Chunk 2 over 3 frames pads its last chunk with a repeat of frame 2
+    marked invalid; the frames and the carried code equal chunk 1's."""
+    auds, eyes = _inputs(3)
+    s2, s1 = _session(chunk=2), _session(chunk=1)
+    f2 = s2.render(auds, eyes)["frames"]
+    f1 = s1.render(auds, eyes)["frames"]
+    assert len(f2) == len(f1) == 3
+    for a, b in zip(f2, f1):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(s2._prev_enc, s1._prev_enc)
+
+
+def test_session_refuses_graph_on_cpu():
+    auds, eyes = _inputs(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        _session().render(auds, eyes, graph=True)
+
+
+def test_port_bench_prints_one_line(capsys):
+    assert bench.main(["--device", "cpu", "--res", "128", "--frames", "2",
+                       "--chunk", "2"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
+    assert line["metric"] == "render_fps_128" and line["unit"] == "fps"
+    assert line["value"] > 0
+    assert line["vs_baseline"] == round(line["value"] / 25.0, 3)
+
+
+def test_port_bench_refuses_bound_with_state():
+    """Divergence from bench.py, which drops --state when --bound != 1 and
+    measures another scene without a word: the port raises."""
+    with pytest.raises(SystemExit, match="bound"):
+        bench.main(["--device", "cpu", "--bound", "2.0"])
