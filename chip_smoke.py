@@ -33,7 +33,25 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      its frames' demand warns, rebuilds at a chunk boundary, and renders
      the frames after the rebuild byte-equal to a session built with the
      plan it converged to;
- 10. bench: a short run of python3 -m lzzx_nerf_tpu_torch.bench.
+ 10. bench: a short run of python3 -m lzzx_nerf_tpu_torch.bench;
+ 11. train: the head training step (PyTorch autograd; it launches neither
+     hand kernel). One full-path and one compacted step at 48², grid 32,
+     1,024 rays, S 8 on the card and on the CPU from one seeded init and
+     the same explicit draws, at step 32 (the jitter regulariser fires,
+     and step_factor 0.32 weighs every loss term), and the regulariser
+     alone: the loss or value and every parameter group's gradient agree
+     within the CPU parity tests' tolerances
+     (tests/test_torch_train_step.py). Then the production point through
+     the entry point's HeadRun (512², grid 128, S 16, 65,536 rays, the
+     compacted budget 49,152, 32 torso frames, cells no camera sees
+     marked, seeded init): TRAIN_WARMUP full-path steps, then
+     TRAIN_COMPACT compacted ones, the grid refreshed every 16: steps/s
+     of each path, refresh seconds, peak memory, n_active against the
+     budget, skipped steps, host syncs per step (sync debug mode), the
+     loss of the first and last 30 steps (the last must average under 0.8
+     of the first) and the 256² eval PSNR over 4 frames before and after
+     (it must rise); then torch.profiler's top-10 kernels of one
+     compacted step and the share of the table-gradient scatter.
 Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
 line.
 """
@@ -62,6 +80,18 @@ PEAK_BYTES = 3.35e12
 # multiply-adds of the field MLP per sample
 FIELD_MACS = (36 * 80 + 64 * 32 + 16 + 36 * 64 + 32 * 64 + 64 + 64 * 64
               + 64 * 65 + 64 * 64 + 16 * 64 + 64 * 3)
+# the production-point training run: full-path warm-up steps, then
+# compacted steps (the recipe's warm-up is 1,000; cut to fit the smoke run)
+TRAIN_WARMUP = 120
+TRAIN_COMPACT = 120
+# card vs CPU on one step: tests/test_torch_train_step.py's tolerances
+# (loss; gradients per entry, the share of entries exempt from it for
+# ReLU pre-activations within rounding of zero, and the relative L2; the
+# regulariser's value)
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_TAIL = 1e-3, 1e-5
+TRAIN_GRAD_EXEMPT, TRAIN_GRAD_L2 = 2e-2, 1e-2
+TRAIN_REG_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -162,6 +192,306 @@ def select_bound(sel_p, a) -> tuple:
                else "bytes"), nbytes, ops
 
 
+def _grads_agree(got: dict, want: dict, worst: dict) -> bool:
+    """Every gradient of `got` within the CPU parity tests' tolerance of
+    `want`; records the largest error over the largest gradient per
+    parameter group in `worst`."""
+    import numpy as np
+
+    from lzzx_nerf_tpu_torch.train import param_label_fn
+
+    ok = True
+    for n, ref in want.items():
+        g = got[n]
+        scale = float(np.abs(ref).max())
+        err = np.abs(g - ref)
+        bad = int((err > TRAIN_GRAD_RTOL * np.abs(ref)
+                   + TRAIN_GRAD_TAIL * scale).sum())
+        l2 = float(np.linalg.norm(g - ref)
+                   / max(np.linalg.norm(ref), 1e-30))
+        ok &= bad <= TRAIN_GRAD_EXEMPT * ref.size and l2 <= TRAIN_GRAD_L2
+        lab = param_label_fn(n)
+        worst[lab] = max(worst.get(lab, 0.0),
+                         float(err.max()) / max(scale, 1e-30))
+    return ok
+
+
+def train_parity(dev) -> tuple:
+    """One full-path and one compacted head step at 48², grid 32, 1,024
+    rays, S 8 on `dev` and on the CPU from one seeded init and the same
+    draws, at step 32 (the jitter regulariser fires, and step_factor 0.32
+    weighs it and the uncertainty and ambient losses); then the
+    regulariser alone, whose 1e-5 weight hides it inside a step's
+    gradient -> (ok, report lines)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import (SyntheticTalkingHead,
+                                          two_blob_occupancy)
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.render import (RenderSettings,
+                                            init_occupancy_state)
+    from lzzx_nerf_tpu_torch.train import (HeadOptimizer, TrainState,
+                                           jitter_regulariser,
+                                           make_train_step)
+
+    G, R, N, S, STEP = 32, 48, 1024, 8, 32
+    ds = SyntheticTalkingHead(num_frames=8, H=R, W=R)
+    settings = RenderSettings(bound=1.0, cascade=1, grid_size=G,
+                              max_steps=S, dt=2 * 3 ** 0.5 / G, num_cand=28)
+    init = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    frame = ds.frame(0)
+
+    def batch_on(d):
+        return {k: int(v) if k == "index" else
+                torch.as_tensor(np.array(v), device=d)
+                for k, v in frame.items()}
+
+    def field_on(d, state):
+        field = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).to(d)
+        field.load_state_dict(state)
+        return field
+
+    def grads(field):
+        return {n: (p.grad.detach().cpu().numpy() if p.grad is not None
+                    else np.zeros(tuple(p.shape), np.float32))
+                for n, p in field.named_parameters()}
+
+    ok, lines = True, []
+    for path, budget in (("full", 0), ("compacted", N)):
+        g = torch.Generator().manual_seed(1)
+        draws = {"inds": torch.randint(0, R * R, (N,), generator=g),
+                 "noise": torch.rand((N,), generator=g),
+                 "eye_jitter": torch.rand((1,), generator=g),
+                 "reg_delta": torch.rand(((budget or N) * S, 3),
+                                         generator=g)}
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            field = field_on(d, init)
+            st = TrainState.create(field, HeadOptimizer(
+                field.named_parameters(), 1e-2, 1e-3, 100))
+            st.step = STEP
+            occ = init_occupancy_state(settings, d)._replace(
+                occ=two_blob_occupancy(G, d))
+            step = make_train_step(field, settings, H=R, W=R,
+                                   intrinsics=ds.intrinsics, num_rays=N,
+                                   iters=100, train_budget=budget)
+            m = step(st, occ, batch_on(d), draws=draws)
+            out[d.type] = (float(m["loss"]), grads(field))
+        (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[dev.type]
+        loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+        worst = {}
+        p_ok = _grads_agree(g_dev, g_cpu, worst)
+        p_ok &= loss_err <= TRAIN_LOSS_RTOL
+        ok &= p_ok
+        lines.append(
+            f"[train] card vs CPU, {path} step {STEP} (48², grid 32, {N} "
+            f"rays, S {S}): loss {l_dev:.7f} vs {l_cpu:.7f} (rel err "
+            f"{loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); largest gradient "
+            f"error / largest gradient per group "
+            f"{ {k: f'{v:.2e}' for k, v in sorted(worst.items())} } "
+            f"{'OK' if p_ok else 'FAIL'}")
+
+    # the regulariser alone, on tables in ±0.5 (at the init's ±1e-4 the
+    # outputs at pts and pts + delta differ by rounding only)
+    g = torch.Generator().manual_seed(2)
+    state = {k: ((torch.rand(v.shape, generator=g) - 0.5)
+                 if k.startswith("encoder_") else v)
+             for k, v in init.items()}
+    M = 4096
+    pts = (torch.rand((M, 3), generator=g) - 0.5) * 1.2
+    dirs = torch.nn.functional.normalize(torch.randn((M, 3), generator=g),
+                                         dim=-1)
+    mask = torch.rand((M,), generator=g) < 0.7
+    delta = (torch.rand((M, 3), generator=g) * 2 - 1) * 1e-3
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        field = field_on(d, state)
+        b = batch_on(d)
+        reg = jitter_regulariser(
+            field, pts.to(d), dirs.to(d), mask.to(d),
+            field.encode_audio_train(b["auds"]),
+            field.individual_codes[b["index"]], b["eye"] + 0.02,
+            delta.to(d), field.bake_train_tables())
+        reg.backward()
+        out[d.type] = (float(reg.detach()), grads(field))
+    (r_cpu, g_cpu), (r_dev, g_dev) = out["cpu"], out[dev.type]
+    r_err = abs(r_dev - r_cpu) / max(abs(r_cpu), 1e-30)
+    worst = {}
+    p_ok = _grads_agree(g_dev, g_cpu, worst)
+    p_ok &= r_cpu > 0 and r_err <= TRAIN_REG_RTOL
+    ok &= p_ok
+    lines.append(
+        f"[train] card vs CPU, jitter regulariser alone ({M} samples): "
+        f"{r_dev:.7e} vs {r_cpu:.7e} (rel err {r_err:.2e}, tol "
+        f"{TRAIN_REG_RTOL}); largest gradient error / largest gradient per "
+        f"group { {k: f'{v:.2e}' for k, v in sorted(worst.items())} } "
+        f"{'OK' if p_ok else 'FAIL'}")
+    return ok, lines
+
+
+def _syncs(fn) -> list:
+    """The host synchronisations fn makes (torch's sync debug mode), as
+    the file:line of the Python call that made each."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+            if "synchroniz" in str(w.message)]
+
+
+def train_production(dev) -> tuple:
+    """The production point through the entry point's HeadRun -> (ok,
+    report lines, summary dict)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.tools.train_production import HeadRun
+
+    lines = []
+    t0 = time.perf_counter()
+    run = HeadRun(res=512, grid=128, frames=32, num_rays=65536,
+                  budget_frac=0.75, warmup=TRAIN_WARMUP,
+                  head_iters=30000, eval_res=256, seed=0, device=dev,
+                  log=lambda m: lines.append(f"[train] {m}"))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    psnr0, per0 = run.eval_psnr()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - a
+
+    losses, t_step = [], {"full": [], "compacted": []}
+    t_ref, peak, n_act = [], {}, []
+    for it in range(TRAIN_WARMUP + TRAIN_COMPACT):
+        if it % 16 == 0:
+            _, dt = timed(lambda: run.refresh_grid(it))
+            t_ref.append(dt)
+        path = "compacted" if it >= TRAIN_WARMUP else "full"
+        if it in (TRAIN_WARMUP - 1, TRAIN_WARMUP + 1):
+            torch.cuda.reset_peak_memory_stats(dev)
+        m, dt = timed(lambda: run.train_step(it))
+        if it in (TRAIN_WARMUP - 1, TRAIN_WARMUP + 1):
+            peak[path] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        t_step[path].append(dt)
+        losses.append(m["loss"])
+        if path == "compacted":
+            n_act.append(m["n_active"])
+    it = TRAIN_WARMUP + TRAIN_COMPACT
+    # three steps of each path, none a regulariser step, after one empty
+    # call (so a sync made by switching the debug mode on the first time
+    # is counted apart)
+    syncs = {"none": _syncs(lambda: None)}
+    syncs.update({p: _syncs(lambda: [run.train_step(it + k, p == "compacted")
+                                for k in (1, 2, 3)])
+             for p in ("full", "compacted")})
+    skipped, _ = run.opt.poll(it)
+    losses = torch.stack(losses).cpu().numpy()
+    n_act = torch.stack(n_act).cpu().numpy()
+    psnr1, per1 = run.eval_psnr()
+    first, last = float(losses[:30].mean()), float(losses[-30:].mean())
+    ok = (bool(np.isfinite(losses).all()) and last < 0.8 * first
+          and psnr1 > psnr0 and skipped == 0)
+
+    def rate(ts):
+        # the first steps of each path warm up allocators and libraries
+        return 1.0 / float(np.median(ts[5:]))
+
+    lines.append(
+        f"[train] production point 512², grid 128, S 16, 65,536 rays, "
+        f"budget {run.budget} (setup {t_setup:.1f} s): full path "
+        f"{rate(t_step['full']):.2f} steps/s (median "
+        f"{1e3 * np.median(t_step['full'][5:]):.2f} ms over "
+        f"{len(t_step['full']) - 5}), compacted "
+        f"{rate(t_step['compacted']):.2f} steps/s (median "
+        f"{1e3 * np.median(t_step['compacted'][5:]):.2f} ms over "
+        f"{len(t_step['compacted']) - 5}); grid refresh (grid 128) median "
+        f"{np.median(t_ref[1:]):.4f} s over {len(t_ref) - 1} (first "
+        f"{t_ref[0]:.3f} s); peak memory full {peak['full']:.2f} GiB, "
+        f"compacted {peak['compacted']:.2f} GiB; n_active max "
+        f"{int(n_act.max())} mean {float(n_act.mean()):.0f} of budget "
+        f"{run.budget}; grad_notfinite {skipped}; host syncs over 3 steps: "
+        f"full {len(syncs['full'])} {sorted(set(syncs['full']))}, "
+        f"compacted {len(syncs['compacted'])} "
+        f"{sorted(set(syncs['compacted']))} (the empty call before them: "
+        f"{len(syncs['none'])})")
+    lines.append(
+        f"[train] loss first 30 steps {first:.6f}, last 30 {last:.6f} "
+        f"(ratio {last / first:.3f}, must be < 0.8); eval PSNR 256² over "
+        f"frames {run.eval_frames}: {psnr0:.2f} dB {per0} -> {psnr1:.2f} "
+        f"dB {per1} {'OK' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return ok, lines, run
+
+
+def train_profile(run) -> list:
+    """torch.profiler's top-10 device kernels of one compacted step and
+    the share of the table-gradient scatter (index_add / scatter
+    kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = TRAIN_WARMUP + TRAIN_COMPACT + 5
+    run.train_step(it, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run.train_step(it + 1, True)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total = sum(dev_us(e) for e in kern)
+    if not kern or total <= 0:
+        return ["[profile] torch.profiler recorded no device time"]
+    scatter = ("indexFunc", "index_add", "scatter_add", "scatter_gather")
+    sc = sum(dev_us(e) for e in kern if any(k in e.key for k in scatter))
+    lines = [f"[profile] one compacted step: {total / 1e3:.3f} device ms "
+             f"over {sum(e.count for e in kern)} kernels; table-gradient "
+             f"scatter (index_add / scatter kernels) {sc / 1e3:.3f} ms, "
+             f"share {sc / total:.3f}"]
+    for e in sorted(kern, key=dev_us, reverse=True)[:10]:
+        lines.append(f"[profile]   {dev_us(e) / 1e3:8.3f} ms "
+                     f"{dev_us(e) / total:6.3f} x{e.count:<4d} "
+                     f"{e.key[:110]}")
+
+    # the autograd nodes (backward) by the device time of what they launch
+    def incl_us(e):
+        for attr in ("device_time_total", "cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    nodes = [e for e in prof.key_averages()
+             if e.key.endswith("Backward0") or e.key.endswith("Backward1")]
+    lines.append("[profile] backward nodes by device time (inclusive):")
+    for e in sorted(nodes, key=incl_us, reverse=True)[:8]:
+        lines.append(f"[profile]   {incl_us(e) / 1e3:8.3f} ms "
+                     f"{incl_us(e) / total:6.3f} x{e.count:<4d} {e.key}")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=16,
@@ -222,6 +552,7 @@ def main() -> int:
         f"{int((sess.torso_plan.idx < sess.H * sess.W).sum())} over {P} "
         f"poses ({time.perf_counter() - t0:.1f} s)")
     A = int(sess.meta["audio_dim"])
+    stage2_built = sess.stage2_budget
 
     def stream(n, seed=0):
         rng = np.random.default_rng(seed)
@@ -283,6 +614,10 @@ def main() -> int:
         f"G={[c[1].shape[1] for c in captured['select']]} "
         f"max n_stage2={max(run96['n_stage2'])}/{sess.stage2_budget} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[session] after the 96 frames: stage2={sess.stage2_budget} "
+        f"(the stage-2 escape; built at {stage2_built}), budget="
+        f"{sess.budget} eval={sess.eval_budget} K2={sess.k2}")
 
     ok = sass_ok
 
@@ -465,6 +800,7 @@ def main() -> int:
     conv = ServingSession(args.state, device=dev, chunk=8,
                           poses=sess.poses[:4], budget=small.budget,
                           march_bucket=small.bucket or False,
+                          stage2_budget=small.stage2_budget,
                           log=lambda m: None)
     r_conv = conv.render(ea, ee)
     warned = any("rebuilding with" in m for m in logs)
@@ -476,7 +812,8 @@ def main() -> int:
             and small.budget > 65536 and len(r_small["frames"]) == 24)
     ok &= e_ok
     log(f"[escape] budget 65536 -> {small.budget} (long "
-        f"{small.long_budget}, eval {small.eval_budget}) after "
+        f"{small.long_budget}, eval {small.eval_budget}, stage 2 "
+        f"{small.stage2_budget}) after "
         f"{rebuilt} rebuild(s), {small.captures} captures; frames 16-23 "
         f"equal to the converged session {after}, frame 0 cut {cut} "
         f"{'OK' if e_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
@@ -502,6 +839,21 @@ def main() -> int:
         b_ok = False
     ok &= b_ok
     log(f"[bench] {lines} {'OK' if b_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the head training step (runs neither hand kernel)
+    t0 = time.perf_counter()
+    p_ok, p_lines = train_parity(dev)
+    for line in p_lines:
+        log(line)
+    t_ok, t_lines, run = train_production(dev)
+    for line in t_lines:
+        log(line)
+    for line in train_profile(run):
+        log(line)
+    ok &= p_ok and t_ok
+    del run
+    log(f"[train] {'OK' if p_ok and t_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # per frame: both field launches (stage 1, stage 2) and both select

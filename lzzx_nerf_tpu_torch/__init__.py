@@ -1,9 +1,11 @@
-"""PyTorch/CUDA port of lzzx_nerf_tpu's serving path.
+"""PyTorch/CUDA port of lzzx_nerf_tpu: the serving path and the head
+training stage.
 
 A second package beside the JAX one: plain tensor code is PyTorch, and the
 two Pallas kernels of the serving frame (the fused field MLP and the nb5w
 march select) are hand-written CUDA kernels for Hopper (``csrc/``), built
-with nvcc at first use (``kernels.py``).
+with nvcc at first use (``kernels.py``). Training runs PyTorch autograd
+(the JAX package differentiates plain XLA there: no kernel to port).
 
 The package imports torch, numpy and the standard library only — never
 JAX and never ``lzzx_nerf_tpu``. Entry points run on ``cuda`` unless the

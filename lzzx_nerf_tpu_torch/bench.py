@@ -7,7 +7,8 @@ bench.py's trained-state path).
 Builds a ServingSession over the trained state at the first training
 pose (bench.py's camera), renders the first chunk as a warm-up (which
 captures the chunk's CUDA graph), then times --frames frames (rounded up
-to whole chunks) of seeded audio and eye
+to whole chunks; a second warm-up chunk when the first asks for a
+rebuild) of seeded audio and eye
 values (bench.py's streams: numpy seed 0, one [chunk, 8, 16, audio_dim]
 draw per chunk, eyes 0.15 + 0.1 sin(f / 4)) until the last yuv420p frame
 is on the host. Prints one JSON line, bench.py's:
@@ -84,6 +85,9 @@ def main(argv=None) -> int:
     C = sess.chunk
     auds, eyes = bench_streams(args.frames, C, int(sess.meta["audio_dim"]))
     sess.render(auds[:C], eyes[:C], graph=args.graph)   # warm-up, capture
+    if sess.rebuild_pending():
+        # an escape fired in the warm-up: rebuild and capture before timing
+        sess.render(auds[:C], eyes[:C], graph=args.graph)
     sess.reset_audio()
     kernels.reset_launches()
     n = len(auds)

@@ -20,6 +20,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 _LEAKY = 0.02
 
 
+def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """Leaky ReLU with the JAX package's derivative at 0 (the slope-1
+    side: jax.nn.leaky_relu is where(x >= 0, x, a * x)); F.leaky_relu takes
+    the other side, and exact zeros are common here (zero-padded audio
+    windows through zero-initialised biases)."""
+    return torch.where(x >= 0, x, _LEAKY * x)
+
+
 class AudioNet(nn.Module):
     """Per-frame audio window [B, T>=16, C_in] -> [B, dim_aud] through a
     strided conv pyramid (16 -> 8 -> 4 -> 2 -> 1) and a 2-layer head."""
@@ -38,9 +46,9 @@ class AudioNet(nn.Module):
         half = self.win_size // 2
         x = x[:, 8 - half: 8 + half, :].transpose(1, 2)    # [B, C, T]
         for i in range(4):
-            x = F.leaky_relu(getattr(self, f"Conv_{i}")(x), _LEAKY)
+            x = _leaky_relu(getattr(self, f"Conv_{i}")(x))
         x = x.reshape(x.shape[0], -1)                      # T collapsed to 1
-        x = F.leaky_relu(self.Dense_0(x), _LEAKY)
+        x = _leaky_relu(self.Dense_0(x))
         return self.Dense_1(x)
 
 
@@ -59,7 +67,7 @@ class AudioAttNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.transpose(1, 2)                              # [B, C, seq]
         for i in range(5):
-            y = F.leaky_relu(getattr(self, f"Conv_{i}")(y), _LEAKY)
+            y = _leaky_relu(getattr(self, f"Conv_{i}")(y))
         y = self.Dense_0(y.reshape(y.shape[0], self.seq_len))
         y = torch.softmax(y, dim=1)[..., None]             # [B, seq, 1]
         return torch.sum(y * x, dim=1)

@@ -1,5 +1,6 @@
-"""Triplane audio-conditioned NeRF field + torso model, serving subset
-(port of lzzx_nerf_tpu/models/nerf.py).
+"""Triplane audio-conditioned NeRF field + torso model (port of
+lzzx_nerf_tpu/models/nerf.py): the head field's training forward
+(density, forward) and the serving subset.
 
 Parameters are named like the flax params tree (encoder_xy_l0,
 sigma_net.net_0.weight, audio_net.Conv_0.weight, ...), so
@@ -9,19 +10,37 @@ ported: it is the one the trained state and the serving path use."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops import fused_field as ff
 from ..ops.freq import freq_encode
 from ..ops.packed_triplane import (DenseTriplaneSpec, bake_packed,
                                    dense_triplane_encode, encode_triplanes)
+from ..ops.sh import sh_encode
 from .audio import AudioAttNet, AudioNet
 from .mlp import MLP
 
 PLANES = ("xy", "yz", "xz")
+
+
+class DensityOutputs(NamedTuple):
+    sigma: torch.Tensor        # [N]
+    geo_feat: torch.Tensor     # [N, 64]
+    ambient_aud: torch.Tensor  # [N]  ||aud channel attention||_2
+    ambient_eye: torch.Tensor  # [N]  eye attention (sigmoid)
+
+
+class FieldOutputs(NamedTuple):
+    sigma: torch.Tensor        # [N]
+    color: torch.Tensor        # [N, 3]
+    ambient_aud: torch.Tensor  # [N]
+    ambient_eye: torch.Tensor  # [N]
+    uncertainty: torch.Tensor  # [N]  softplus-activated
 
 
 class NeRFField(nn.Module):
@@ -66,18 +85,107 @@ class NeRFField(nn.Module):
         return {p: bake_packed(self.plane_levels(p), self.dense_spec,
                                dtype=dtype) for p in PLANES}
 
+    def bake_train_tables(self) -> Dict[str, torch.Tensor]:
+        """The float32 packed tables baked inside the autograd graph: the
+        training forward's encoding (the JAX field's in-graph bake), whose
+        gradient reaches the plane parameters."""
+        return {p: bake_packed(self.plane_levels(p), self.dense_spec)
+                for p in PLANES}
+
     def encode_x(self, xyz: torch.Tensor,
                  packed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[N, 3] in [-bound, bound] -> [N, 36] triplane features."""
         return encode_triplanes(xyz, packed, self.dense_spec, self.bound)
 
-    @torch.no_grad()
-    def encode_audio(self, a: torch.Tensor) -> torch.Tensor:
-        """a: [n_frames, T, C_in] (8 frames when att > 0) -> [1, audio_dim]."""
+    def encode_audio_train(self, a: torch.Tensor) -> torch.Tensor:
+        """a: [n_frames, T, C_in] (8 frames when att > 0) -> [1, audio_dim],
+        with gradients (the training step's audio path)."""
         enc = self.audio_net(a)
         if self.att > 0:
             enc = self.audio_att_net(enc[None])
         return enc
+
+    @torch.no_grad()
+    def encode_audio(self, a: torch.Tensor) -> torch.Tensor:
+        """encode_audio_train without gradients (the serving path)."""
+        return self.encode_audio_train(a)
+
+    def density(self, x: torch.Tensor, enc_a: torch.Tensor,
+                e: torch.Tensor, enc_x: Optional[torch.Tensor] = None,
+                packed: Optional[Dict[str, torch.Tensor]] = None
+                ) -> DensityOutputs:
+        """sigma (plain exp), geometry features and the two ambient
+        attentions of points x [N, 3], at eye value e [1]."""
+        if enc_x is None:
+            enc_x = self.encode_x(x, packed if packed is not None
+                                  else self.bake_train_tables())
+        N = enc_x.shape[0]
+        enc_a = enc_a.reshape(1, -1).expand(N, self.audio_dim)
+        aud_ch_att = self.aud_ch_att_net(enc_x)
+        enc_w = enc_a * aud_ch_att
+        eye_att = torch.sigmoid(self.eye_att_net(enc_x))           # [N, 1]
+        h = self.sigma_net(
+            torch.cat([enc_x, enc_w, e.reshape(1, 1) * eye_att], dim=-1))
+        # plain exp is the reference activation (not trunc_exp)
+        sigma = torch.exp(h[..., 0])
+        # safe L2: the plain norm's gradient at an exactly-zero vector is
+        # nan, and the ambient-audio loss drives these outputs to zero
+        amb_aud = torch.sqrt(torch.sum(aud_ch_att ** 2, dim=-1) + 1e-12)
+        return DensityOutputs(sigma, h[..., 1:], amb_aud, eye_att[..., 0])
+
+    def forward(self, x: torch.Tensor, d: torch.Tensor, enc_a: torch.Tensor,
+                c: Optional[torch.Tensor], e: torch.Tensor,
+                compute_uncertainty: bool = True,
+                packed: Optional[Dict[str, torch.Tensor]] = None
+                ) -> FieldOutputs:
+        """The training field: points x [N, 3], unit view dirs d [N, 3],
+        audio code enc_a [1, audio_dim], individual code c [ind_dim] or
+        None, eye value e [1]. packed: the step's tables
+        (bake_train_tables), baked here when None."""
+        enc_x = self.encode_x(x, packed if packed is not None
+                              else self.bake_train_tables())
+        dens = self.density(x, enc_a, e, enc_x)
+        parts = [sh_encode(d, 4), dens.geo_feat]
+        if c is not None:
+            parts.append(c.reshape(1, -1).expand(x.shape[0], c.numel()))
+        h_color = self.color_net(torch.cat(parts, dim=-1))
+        color = torch.sigmoid(h_color) * (1 + 2 * 0.001) - 0.001
+        if compute_uncertainty:
+            # unc_net sees a detached encoding
+            unc = F.softplus(self.unc_net(enc_x.detach()))[..., 0]
+        else:
+            unc = torch.zeros_like(dens.sigma)
+        return FieldOutputs(dens.sigma, color, dens.ambient_aud,
+                            dens.ambient_eye, unc)
+
+    def init_all(self, x, d, auds, c, e) -> FieldOutputs:
+        """Runs every submodule once (the JAX field's init_all)."""
+        return self(x, d, self.encode_audio_train(auds), c, e)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "NeRFField":
+        """Draw every parameter from `generator` with the JAX package's
+        initialisers: triplane tables uniform in ±1e-4, individual codes
+        normal x 0.1, kernels torch_linear_init (uniform in
+        ±1/sqrt(shape[0]) of the flax kernel: its fan-in for a Dense,
+        the kernel width 3 for a Conv), biases zero. Returns self."""
+        for name, p in self.named_parameters():
+            if name.startswith("encoder_"):
+                bound = 1e-4
+            elif name == "individual_codes":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) * 0.1)
+                continue
+            elif name.endswith(".bias"):
+                p.zero_()
+                continue
+            elif p.ndim == 3:                 # Conv1d [out, in, k]
+                bound = 1.0 / math.sqrt(p.shape[2])
+            else:                             # Linear [out, in]
+                bound = 1.0 / math.sqrt(p.shape[1])
+            u = torch.rand(p.shape, generator=generator, device=p.device)
+            p.copy_((u * 2.0 - 1.0) * bound)
+        return self
 
 
 def make_fused_apply(field: NeRFField, packed: Dict[str, torch.Tensor],

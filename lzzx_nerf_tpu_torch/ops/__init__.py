@@ -1,2 +1,2 @@
-"""Tensor ops of the serving path; the two kernel wrappers are
-fused_field.fused_field_eval and march_select.march_select."""
+"""Tensor ops of the serving and training paths; the two kernel wrappers
+are fused_field.fused_field_eval and march_select.march_select."""

@@ -9,7 +9,9 @@ and marches them (march_rays_window_bitmask_nb_block). The host planners
 size the candidate count K2 and check the block march's drift envelope
 (resolve_march_plan), plan the short/long bucket march
 (measure_bucket_plan, bucket_short_budget) and count the blocks the eval
-re-compaction keeps (measure_real_blocks_host).
+re-compaction keeps (measure_real_blocks_host). The training step marches
+its compacted rays with march_rays_window (the per-candidate occupancy
+test over each ray's window).
 
 Bit tables are stored as int32 tensors holding the uint32 bit patterns of
 the JAX package's tables (PyTorch's uint32 support is partial); a right
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from .march import MarchResult
+from .march import (MarchResult, _lattice_samples, first_s_select,
+                    occ_lookup)
 from .march_select import march_select, march_select_reference
 
 
@@ -256,6 +259,46 @@ def compact_rays(active: torch.Tensor, budget: int) -> CompactSet:
         n_active, max=budget)
     return CompactSet(ray_idx=buf[:budget], slot_valid=slot_valid,
                       n_active=n_active)
+
+
+def march_rays_window(rays_o, rays_d, t_start, t_end, slot_valid,
+                      occ_grid, bound: float, dt: float, num_cand: int,
+                      max_samples: int, noise=None, nears=None
+                      ) -> MarchResult:
+    """march_rays_uniform's candidate lattice, occupancy test (cascade 0)
+    and first-S select over each compacted ray's window only: the training
+    step's march.
+
+    noise [B] in [0, 1): the near-anchored noisy lattice
+    nears + (k + noise) * dt. The window start is snapped up to the
+    unshifted lattice, so the lattice starts one step early and candidates
+    below the full marcher's own start (nears + noise * dt) are masked:
+    the sample set is then exactly the full marcher's within the window."""
+    H = occ_grid.shape[1]
+    if max_samples > num_cand:
+        raise ValueError(
+            f"max_samples ({max_samples}) cannot exceed window candidates "
+            f"({num_cand})")
+    if noise is None:
+        t0 = t_start
+        floor_t = None
+    else:
+        if nears is None:
+            raise ValueError("noise marching needs `nears` for the lattice "
+                             "floor")
+        t0 = t_start + dt * (noise - 1.0)
+        floor_t = nears + dt * noise - 1e-4 * dt
+    k = torch.arange(num_cand, dtype=torch.float32, device=rays_o.device)
+    t_cand = t0[:, None] + k[None, :] * dt                     # [B, K2]
+    gp = _cells(rays_o[:, None, :] + t_cand[..., None] * rays_d[:, None, :],
+                bound, H)
+    flat = gp[..., 0] * (H * H) + gp[..., 1] * H + gp[..., 2]
+    valid = (occ_lookup(occ_grid[0], flat) & (t_cand < t_end[:, None])
+             & slot_valid[:, None])
+    if floor_t is not None:
+        valid = valid & (t_cand >= floor_t[:, None])
+    sel_k, mask = first_s_select(valid, num_cand, max_samples)
+    return _lattice_samples(rays_o, rays_d, t0, sel_k, mask, bound, dt)
 
 
 def march_rays_window_bitmask_nb_block(

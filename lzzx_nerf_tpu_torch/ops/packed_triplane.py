@@ -11,9 +11,11 @@ dtype once, so a bf16 table holds exactly the bytes the JAX package bakes.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,27 +60,58 @@ class DenseTriplaneSpec:
                    for r, c in zip(self.resolutions, self.channels))
 
 
+@functools.lru_cache(maxsize=8)
+def _bake_index(spec: DenseTriplaneSpec, device: str) -> torch.Tensor:
+    """[pack_res² * packed_dim] int64: for each entry of the packed table,
+    its index in the flat concatenation of the levels (each [r+1, r+1, C]
+    in row-major order). Row (px, py), per level in order:
+    - r <= pack_res (s = pack_res / r): the corners (0,0), (1,0), (0,1),
+      (1,1) of cell (px // s, py // s);
+    - r > pack_res (ratio = r / pack_res): the points (ratio*px + i,
+      ratio*py + j), i-major."""
+    P = spec.pack_res
+    px, py = np.meshgrid(np.arange(P), np.arange(P), indexing="ij")
+    cols, base = [], 0
+    for r, C in zip(spec.resolutions, spec.channels):
+        def at(i, j):
+            return base + (i[..., None] * (r + 1) + j[..., None]) * C + \
+                np.arange(C)
+        if r <= P:
+            s = P // r
+            cols += [at(px // s + dx, py // s + dy)
+                     for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1))]
+        else:
+            ratio = r // P
+            cols += [at(ratio * px + i, ratio * py + j)
+                     for i in range(ratio + 1) for j in range(ratio + 1)]
+        base += (r + 1) ** 2 * C
+    idx = np.concatenate(cols, axis=-1).reshape(-1)
+    return torch.from_numpy(idx).to(device)
+
+
 def bake_packed(levels: Sequence[torch.Tensor], spec: DenseTriplaneSpec,
                 dtype=torch.float32) -> torch.Tensor:
     """Per-level [r+1, r+1, C] grids -> packed table
-    [pack_res², packed_dim] (layout: see the JAX bake_packed)."""
-    P = spec.pack_res
-    parts = []
-    for A, (r, C) in zip(levels, zip(spec.resolutions, spec.channels)):
-        A = A.to(torch.float32)
-        if r <= P:
-            s = P // r
-            for c in (A[:-1, :-1], A[1:, :-1], A[:-1, 1:], A[1:, 1:]):
-                if s > 1:
-                    c = c.repeat_interleave(s, 0).repeat_interleave(s, 1)
-                parts.append(c)
-        else:
-            ratio = r // P
-            for i in range(ratio + 1):
-                for j in range(ratio + 1):
-                    parts.append(A[i::ratio, j::ratio][:P, :P])
-    out = torch.cat(parts, dim=-1).reshape(P * P, spec.packed_dim)
+    [pack_res², packed_dim] (layout: see the JAX bake_packed, and
+    _bake_index): one gather from the concatenated levels, so autograd
+    carries the table's gradient back to the levels as one scatter-add
+    (the training step bakes in its graph). Baked in float32, cast once."""
+    flat = torch.cat([A.to(torch.float32).reshape(-1) for A in levels])
+    idx = _bake_index(spec, str(flat.device))
+    out = flat.index_select(0, idx).reshape(spec.pack_res ** 2,
+                                            spec.packed_dim)
     return out.to(dtype).contiguous()
+
+
+def _block_widths(spec: DenseTriplaneSpec) -> Tuple[int, ...]:
+    """Column widths of a packed row's blocks, in order: four corner
+    blocks of C per level at or below the packing resolution, one window
+    block of (ratio+1)² C per finer level."""
+    widths = []
+    for r, C in zip(spec.resolutions, spec.channels):
+        widths += [C] * 4 if r <= spec.pack_res else [spec.level_points(r)
+                                                       * C]
+    return tuple(widths)
 
 
 def packed_lookup(packed: torch.Tensor, xy01: torch.Tensor,
@@ -94,21 +127,20 @@ def packed_lookup(packed: torch.Tensor, xy01: torch.Tensor,
     pc = torch.clamp(torch.floor(u * P), 0, P - 1).to(torch.int64)
     rows = packed.index_select(0, pc[:, 0] * P + pc[:, 1]).to(torch.float32)
 
+    # one split into the row's blocks: its backward is one concatenation,
+    # where a slice per block would build and add a full-width gradient
+    blocks = iter(rows.split(_block_widths(spec), dim=1))
     outs = []
-    offset = 0
     for r, C in zip(spec.resolutions, spec.channels):
         cell = torch.clamp(torch.floor(u * r), 0, r - 1).to(torch.int64)
         frac = u * r - cell.to(torch.float32)
         fx, fy = frac[:, :1], frac[:, 1:]
         if r <= P:
-            c00, c10, c01, c11 = (rows[:, offset + k * C: offset + (k + 1) * C]
-                                  for k in range(4))
-            offset += 4 * C
+            c00, c10, c01, c11 = (next(blocks) for _ in range(4))
         else:
             ratio = r // P
             n = ratio + 1
-            pts = rows[:, offset:offset + n * n * C].reshape(-1, n * n, C)
-            offset += n * n * C
+            pts = next(blocks).reshape(-1, n * n, C)
             px = cell[:, 0] - pc[:, 0] * ratio                 # [B]
             py = cell[:, 1] - pc[:, 1] * ratio
 

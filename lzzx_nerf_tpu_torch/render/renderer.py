@@ -1,7 +1,9 @@
 """The serving frame: block windows -> prepass -> compaction -> block march
 -> staged field eval + composite -> block scatter + background (port of
 render_rays_compact_blocks and the torso pass of
-lzzx_nerf_tpu/render/renderer.py).
+lzzx_nerf_tpu/render/renderer.py); and the training renders: render_rays
+(the full-path march, training and eval) and render_rays_train_compact
+(window-compacted rays).
 
 The JAX package scatters with mode="drop" to sentinel indices; here every
 such scatter writes to one extra discarded row instead, so an out-of-range
@@ -15,14 +17,16 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.composite import exclusive_cumprod
-from ..ops.march import MarchResult
-from ..ops.march2 import (InferenceTables, block_view, compact_rays,
-                          default_window_candidates,
+from ..ops.composite import composite_rays, cumprod_seq, exclusive_cumprod
+from ..ops.march import MarchResult, march_rays_uniform
+from ..ops.march2 import (InferenceTables, block_view, column_intervals,
+                          compact_rays, default_window_candidates,
+                          march_rays_window,
                           march_rays_window_bitmask_nb_block,
                           prepass_block_hits, prepass_block_spans,
                           ray_windows)
 from ..ops.ray import near_far_from_aabb
+from ..utils.clip import clip
 from .state import OccupancyState, RenderSettings
 
 # (pts [N, 3], dirs [N, 3]) -> (sigma [N], color [N, 3]) for one frame
@@ -53,6 +57,17 @@ def _scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
     return ext[:n]
 
 
+def _set_rows(dst: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+              src: torch.Tensor) -> torch.Tensor:
+    """dst with dst[idx[i]] = src[i] where valid[i], out of place (the JAX
+    .at[].set(mode="drop")): invalid rows write one extra row that is
+    sliced off, so their values, duplicates included, get no gradient."""
+    n = dst.shape[0]
+    tgt = torch.where(valid, idx, torch.full_like(idx, n))
+    ext = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
+    return ext.index_copy(0, tgt, src)[:n]
+
+
 def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
                            m, rd: torch.Tensor, B: int, S: int,
                            stage_split: int, stage2_budget: int):
@@ -72,12 +87,14 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
     rgb1 = rgb1.reshape(B, S1, 3)
     mask1 = m.mask[:, :S1]
     alpha1 = (1.0 - torch.exp(-sig1 * m.deltas[:, :S1])) * mask1
-    one_minus1 = 1.0 - alpha1
-    T1 = exclusive_cumprod(one_minus1)
+    # the products of jnp.cumprod's order (ops/composite.py); the JAX
+    # package computes the same inclusive product twice, for T1 and T_end
+    P1 = cumprod_seq(1.0 - alpha1)
+    T1 = torch.cat([torch.ones_like(P1[:, :1]), P1[:, :-1]], dim=-1)
     w1 = alpha1 * T1 * ((T1 >= settings.T_thresh) & mask1)
     image = torch.einsum("ns,nsc->nc", w1, rgb1)
     wsum = w1.sum(dim=-1)
-    T_end = torch.cumprod(one_minus1, dim=-1)[:, -1]
+    T_end = P1[:, -1]
 
     surv = (T_end >= settings.T_thresh) & m.mask[:, S1:].any(dim=-1)
     cs2 = compact_rays(surv, stage2_budget)
@@ -100,6 +117,138 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
                               torch.einsum("ns,nsc->nc", w2, rgb2))
     wsum = _scatter_add_rows(wsum, idx2, cs2.slot_valid, w2.sum(dim=-1))
     return image, wsum, cs2.n_active
+
+
+def _aabb(settings: RenderSettings, aabb, device) -> torch.Tensor:
+    if aabb is not None:
+        return aabb
+    return torch.tensor(settings.aabb, dtype=torch.float32, device=device)
+
+
+def _composite_outputs(out, m: MarchResult, B: int, S: int,
+                       settings: RenderSettings):
+    sigmas = (out.sigma * settings.density_scale).reshape(B, S)
+    # the composite takes |amb| of the [N, 1] channels, i.e. the values
+    return composite_rays(
+        sigmas, out.color.reshape(B, S, 3),
+        out.ambient_aud.abs().reshape(B, S),
+        out.ambient_eye.abs().reshape(B, S),
+        out.uncertainty.reshape(B, S), m.deltas, m.ts, m.mask,
+        T_thresh=settings.T_thresh)
+
+
+def render_rays(field_fn: Callable, settings: RenderSettings,
+                state: OccupancyState, rays_o: torch.Tensor,
+                rays_d: torch.Tensor, bg_color: torch.Tensor,
+                noise: Optional[torch.Tensor] = None, training: bool = False,
+                aabb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """The full-path render: march_rays_uniform over every ray (first S
+    occupied lattice points of num_cand), one field eval of all N*S
+    samples, composite, background.
+
+    field_fn(pts [M, 3], dirs [M, 3]) -> models.FieldOutputs. noise [N] in
+    [0, 1): the training lattice jitter. Returns image [N, 3], depth,
+    weights_sum, ambient_aud, ambient_eye, uncertainty [N], and with
+    training=True the sample set (pts, dirs, mask) for the jitter
+    regulariser."""
+    N = rays_o.shape[0]
+    S = settings.max_steps
+    nears, fars = near_far_from_aabb(
+        rays_o, rays_d, _aabb(settings, aabb, rays_o.device),
+        settings.min_near)
+    m = march_rays_uniform(rays_o, rays_d, nears, fars, state.occ,
+                           settings.bound, settings.dt, settings.num_cand,
+                           S, noise=noise)
+    pts = m.xyzs.reshape(N * S, 3)
+    dirs = _repeat_rows(rays_d, S)
+    comp = _composite_outputs(field_fn(pts, dirs), m, N, S, settings)
+    image = clip(comp.image + (1.0 - comp.weights_sum)[:, None] * bg_color,
+                 0.0, 1.0)
+    depth = clip(comp.depth - nears, 0.0) / clip(fars - nears, 1e-6)
+    res: Dict[str, Any] = {
+        "image": image, "depth": depth, "weights_sum": comp.weights_sum,
+        "ambient_aud": comp.amb_aud_sum, "ambient_eye": comp.amb_eye_sum,
+        "uncertainty": comp.uncertainty_sum}
+    if training:
+        res["rays"] = (pts, dirs, m.mask.reshape(-1))
+    return res
+
+
+def render_rays_train_compact(
+        field_fn: Callable, settings: RenderSettings, state: OccupancyState,
+        rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color: torch.Tensor,
+        budget: int, noise: Optional[torch.Tensor] = None,
+        window_candidates: Optional[int] = None, stage_split: int = 0,
+        aabb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """render_rays(training=True) for every ray that gets a slot, at a
+    fraction of the work: rays whose windows (ray_windows over the
+    occupancy's column intervals) are empty render background without a
+    field eval, the active ones are compacted into `budget` slots and
+    marched over their windows on the same noisy lattice and occupancy
+    test as the full march (march_rays_window).
+
+    Active rays beyond the budget render as background and get loss weight
+    0; the slotted active rays are upweighted by n_active / n_slotted so
+    the loss stays an unbiased estimate of the full batch's (`ray_weight`,
+    which sums to N). n_active reports the demand. The staged training
+    composite (stage_split > 0) is not ported."""
+    if stage_split:
+        raise NotImplementedError(
+            "stage_split > 0 (the staged training composite) is not "
+            "ported yet; it is a later slice of the training port")
+    N = rays_o.shape[0]
+    S = settings.max_steps
+    K2 = window_candidates or settings.num_cand + 2
+    nears, fars = near_far_from_aabb(
+        rays_o, rays_d, _aabb(settings, aabb, rays_o.device),
+        settings.min_near)
+    z_lo, z_hi = column_intervals(state.occ, settings.bound)
+    win = ray_windows(rays_o, rays_d, nears, fars, z_lo, z_hi,
+                      settings.bound, settings.dt)
+    cs = compact_rays(win.active, budget)
+    slotted = win.active & (torch.cumsum(win.active.to(torch.int64), 0)
+                            <= budget)
+    n_slot = torch.clamp(cs.n_active, max=budget).to(torch.float32)
+    over_w = cs.n_active.to(torch.float32) / torch.clamp(n_slot, min=1.0)
+    ray_weight = torch.where(win.active,
+                             torch.where(slotted, over_w, 0.0), 1.0)
+
+    cols = [rays_o, rays_d, win.t_start[:, None], win.t_end[:, None],
+            nears[:, None], fars[:, None], bg_color]
+    if noise is not None:
+        cols.append(noise[:, None])
+    rows = torch.cat(cols, dim=-1).index_select(0, cs.ray_idx)
+    ro, rd = rows[:, 0:3], rows[:, 3:6]
+    nears_c, fars_c = rows[:, 8], rows[:, 9]
+    bg_c = rows[:, 10:13]
+    noise_c = rows[:, 13] if noise is not None else None
+    m = march_rays_window(ro, rd, rows[:, 6], rows[:, 7], cs.slot_valid,
+                          state.occ, settings.bound, settings.dt, K2, S,
+                          noise=noise_c, nears=nears_c)
+
+    pts = m.xyzs.reshape(budget * S, 3)
+    dirs = _repeat_rows(rd, S)
+    comp = _composite_outputs(field_fn(pts, dirs), m, budget, S, settings)
+    image_c = clip(comp.image + (1.0 - comp.weights_sum)[:, None] * bg_c,
+                   0.0, 1.0)
+    depth_c = clip(comp.depth - nears_c, 0.0) / clip(fars_c - nears_c, 1e-6)
+
+    def scat(vals, base=None):
+        if base is None:
+            base = vals.new_zeros((N,) + vals.shape[1:])
+        return _set_rows(base, cs.ray_idx, cs.slot_valid, vals)
+
+    return {
+        "image": scat(image_c, clip(bg_color, 0.0, 1.0)),
+        "depth": scat(depth_c),
+        "weights_sum": scat(comp.weights_sum),
+        "ambient_aud": scat(comp.amb_aud_sum),
+        "ambient_eye": scat(comp.amb_eye_sum),
+        "uncertainty": scat(comp.uncertainty_sum),
+        "rays": (pts, dirs, m.mask.reshape(-1)),
+        "ray_weight": ray_weight,
+        "n_active": cs.n_active,
+    }
 
 
 def render_rays_compact_blocks(

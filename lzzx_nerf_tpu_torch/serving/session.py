@@ -12,7 +12,8 @@ will render (the plan):
 - the short/long bucket plan (measure_bucket_plan) and its short budget;
 - the eval budget from the host-measured real rays (measure_real_blocks_
   host, the largest over the poses) x 1.25;
-- the stage-2 budget from the ray budget.
+- the stage-2 budget from the ray budget (0.375 of it, in 1024-slot
+  steps).
 
 Each frame runs audio encode with the smooth-lips EMA (in its masked form,
 so a chunk has no Python branch), rays, the torso pass,
@@ -29,6 +30,14 @@ a frame needed more than the plan holds (admitted rays > ray budget, a
 window > K2, real rays > eval budget, long-bucket rays > long budget), the
 session warns, streams the chunk as rendered and rebuilds the plan (and
 captures the graph again) at the next chunk boundary.
+
+Diverges from the JAX session: stage-2 survivors over the stage-2 budget
+(rays still transmissive at the split, whose samples 8-15 the overflow
+drops) are an escape too. The JAX session warns and keeps truncating them;
+this session rebuilds with 1.25 x the observed survivors, rounded up to
+the granule like the ray budget (capped at the ray budget, which holds
+every survivor). At the production 0.375 the trained state's own poses
+overflow it on every chunk.
 """
 
 from __future__ import annotations
@@ -82,14 +91,16 @@ class ServingSession:
     False marches one bucket, a tuple (K2s, short_budget) fixes the plan.
     eval_recompact: the post-march eval re-compaction. budget, k2,
     eval_budget: start from these instead of the measured values (the
-    escapes grow them as they would grow measured ones)."""
+    escapes grow them as they would grow measured ones); stage2_budget:
+    start from this stage-2 budget (at most the ray budget) instead of
+    0.375 of the ray budget."""
 
     def __init__(self, state_path: str, device=None,
                  poses: Optional[np.ndarray] = None, res: Optional[int] = None,
                  chunk: int = 8, log=print,
                  march_bucket: Union[bool, tuple] = True,
                  eval_recompact: bool = True, budget: int = 0, k2: int = 0,
-                 eval_budget: int = 0):
+                 eval_budget: int = 0, stage2_budget: int = 0):
         t_build = time.perf_counter()
         self.device = dev = resolve_device(device)
         self.chunk = max(1, chunk)
@@ -151,6 +162,7 @@ class ServingSession:
         self._budget_override = budget
         self._k2_override = k2
         self._eval_override = eval_budget
+        self._stage2_override = stage2_budget
         self._pending: Dict[str, int] = {}
         self._overflow_warned = self._long_warned = False
         self._measured: Dict[int, dict] = {}
@@ -274,8 +286,9 @@ class ServingSession:
         self.bucket = bucket
         self.long_budget = budget - bucket[1] if bucket else 0
         self.eval_budget = eval_budget
-        self.stage2_budget = max(1024, int(budget * STAGE2_FRAC)
-                                 // 1024 * 1024)
+        self.stage2_budget = (
+            min(self._stage2_override, budget) if self._stage2_override
+            else max(1024, int(budget * STAGE2_FRAC) // 1024 * 1024))
         self._graph = None
         self.build_seconds = time.perf_counter() - t0
         self.log(
@@ -460,10 +473,19 @@ class ServingSession:
                          f"needed {c['n_winmax']}) before the K2 rebuild "
                          "takes effect")
         if c["n_stage2"] > plan["stage2_budget"]:
-            self.log(f"[WARN] frames {base}..{last}: {c['n_stage2']} "
-                     f"stage-2 survivors exceed the stage-2 budget "
-                     f"{plan['stage2_budget']}; those rays truncate at the "
-                     "split")
+            # the plan caps it at the ray budget it is built with
+            want = min(cap, max(gran, _ceil_to(c["n_stage2"] * 1.25, gran)))
+            msg = (f"[WARN] frames {base}..{last}: {c['n_stage2']} "
+                   f"stage-2 survivors exceed the stage-2 budget "
+                   f"{plan['stage2_budget']}; those rays truncate at the "
+                   "split")
+            if want > max(
+                    self.stage2_budget, self._pending.get("stage2", 0)):
+                self.log(f"{msg}; rebuilding with stage-2 budget {want} at "
+                         "the next chunk boundary")
+                self._want("stage2", want)
+            else:
+                self.log(msg)
         if plan["eval_budget"] and c["n_real"] > plan["eval_budget"]:
             want = min(self.budget,
                        max(gran, _ceil_to(c["n_real"] * 1.25, gran)))
@@ -489,7 +511,13 @@ class ServingSession:
     def _rebuild_due(self) -> bool:
         p = self._pending
         return (p.get("budget", 0) > self.budget or p.get("k2", 0) > self.k2
-                or p.get("eval", 0) > self.eval_budget)
+                or p.get("eval", 0) > self.eval_budget
+                or p.get("stage2", 0) > self.stage2_budget)
+
+    def rebuild_pending(self) -> bool:
+        """True when the last chunk rendered asks for a rebuild, which the
+        next render() makes before its first chunk."""
+        return bool(self._pending) and self._rebuild_due()
 
     def _rebuild(self) -> None:
         t0 = time.perf_counter()
@@ -500,6 +528,8 @@ class ServingSession:
             self._k2_override = p["k2"]
         if p.get("eval", 0) > self.eval_budget:
             self._eval_override = p["eval"]
+        if p.get("stage2", 0) > self.stage2_budget:
+            self._stage2_override = p["stage2"]
         self._pending = {}
         self.log("rebuild at a chunk boundary")
         self._build_plan(t0)

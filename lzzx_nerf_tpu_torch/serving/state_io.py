@@ -109,3 +109,27 @@ def params_from_jax(tree: Dict[str, Any], prefix: str = ""
             key = "weight"
         out[f"{prefix}{key}"] = torch.from_numpy(np.array(a, order="C"))
     return out
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of params_from_jax: a state_dict of the port's modules ->
+    flax params tree of numpy float32 arrays (Linear [out, in] -> Dense
+    kernel [in, out], Conv1d [out, in, k] -> Conv kernel [k, in, out]),
+    without the top-level "params" collection."""
+    tree: Dict[str, Any] = {}
+    for name, val in state_dict.items():
+        a = val.detach().to("cpu", torch.float32).numpy()
+        *parents, key = name.split(".")
+        if key == "weight":
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 3:
+                a = a.transpose(2, 1, 0)
+            else:
+                raise ValueError(f"{name}: unexpected rank {a.ndim}")
+            key = "kernel"
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = np.array(a, order="C")
+    return tree

@@ -1,0 +1,10 @@
+"""The head training stage."""
+from .losses import binary_entropy, entropy_loss, head_losses
+from .metrics import PSNRMeter, psnr
+from .optim import HeadOptimizer, param_label_fn
+from .trainer import (TrainState, jitter_regulariser, make_eval_step,
+                      make_train_step)
+
+__all__ = ["HeadOptimizer", "PSNRMeter", "TrainState", "binary_entropy",
+           "entropy_loss", "head_losses", "jitter_regulariser",
+           "make_eval_step", "make_train_step", "param_label_fn", "psnr"]

@@ -1,0 +1,258 @@
+"""The head training step and the eval render (port of
+lzzx_nerf_tpu/train/trainer.py: TrainState, make_train_step,
+make_eval_step).
+
+One step: random rays of one frame, the audio code, the field through the
+full-path march (render_rays) or the window-compacted one
+(render_rays_train_compact), the head loss stack, the every-16-steps
+jitter regulariser, backward, the optimizer (non-finite steps skipped on
+the device) and the periodic EMA. The step's random draws come from an
+explicit generator on the step's device, or are passed in (`draws`) — the
+parity tests pass the JAX package's threefry draws. A step reads nothing
+back to the host: its metrics are device tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.nerf import NeRFField
+from ..render.renderer import render_rays, render_rays_train_compact
+from ..render.state import OccupancyState, RenderSettings
+from ..utils.rays import get_rays
+from .losses import head_losses
+from .optim import HeadOptimizer
+
+
+@dataclass
+class TrainState:
+    field: NeRFField
+    opt: HeadOptimizer
+    ema: Dict[str, torch.Tensor]
+    step: int = 0
+
+    @classmethod
+    def create(cls, field: NeRFField, opt: HeadOptimizer) -> "TrainState":
+        return cls(field=field, opt=opt,
+                   ema={n: p.detach().clone()
+                        for n, p in field.named_parameters()})
+
+
+def _masked_mse(a, b, w):
+    w = w.to(torch.float32)
+    return torch.sum(((a - b) ** 2) * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def jitter_regulariser(field: NeRFField, pts: torch.Tensor,
+                       dirs: torch.Tensor, mask: torch.Tensor,
+                       enc_a: torch.Tensor, c: Optional[torch.Tensor],
+                       eye: torch.Tensor, delta: torch.Tensor,
+                       packed: Dict[str, torch.Tensor], *,
+                       unc_loss: bool = True, amb_aud_loss: bool = True,
+                       amb_eye_loss: bool = True) -> torch.Tensor:
+    """The every-16-steps regulariser: masked MSEs of the uncertainty and
+    ambient outputs at the jittered samples pts + delta against their
+    detached values at pts, with the audio and individual codes detached
+    (reference TrainerUtil.py:346-365, via the JAX package's step)."""
+    ea = enc_a.detach()
+    cc = c.detach() if c is not None else None
+    with torch.no_grad():
+        raw = field(pts, dirs, ea, cc, eye, compute_uncertainty=unc_loss,
+                    packed=packed)
+    per = field(pts + delta, dirs, ea, cc, eye,
+                compute_uncertainty=unc_loss, packed=packed)
+    reg = pts.new_zeros(())
+    if unc_loss:
+        reg = reg + _masked_mse(raw.uncertainty, per.uncertainty, mask)
+    if amb_aud_loss:
+        reg = reg + _masked_mse(raw.ambient_aud, per.ambient_aud, mask)
+    if amb_eye_loss:
+        reg = reg + _masked_mse(raw.ambient_eye, per.ambient_eye, mask)
+    return reg
+
+
+def _f32_ratio(a: int, b: int) -> float:
+    """a / b rounded like the JAX package's float32 division."""
+    return float(np.float32(a) / np.float32(b))
+
+
+def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
+                    W: int, intrinsics: Tuple[float, float, float, float],
+                    num_rays: int, iters: int, patch_size: int = 1,
+                    unc_loss: bool = True, amb_aud_loss: bool = True,
+                    amb_eye_loss: bool = True, lambda_amb: float = 1e-4,
+                    ind_dim: int = 4, ema_decay: float = 0.95,
+                    ema_interval: int = 1000,
+                    update_extra_interval: int = 16,
+                    finetune_lips: bool = False, train_camera: bool = False,
+                    data_parallel: bool = False, train_budget: int = 0,
+                    train_stage_split: int = 0):
+    """Returns step(state, occ, batch, generator=None, draws=None) ->
+    metrics. train_budget > 0 selects the compacted step.
+
+    batch: image [H, W, 3], bg_color [H, W, 3], face_mask [H, W] bool,
+    pose [4, 4], auds [8, 16, C], eye [1], index (int), on the step's
+    device. draws: tensors that replace the generator's draws (any
+    subset; the rest come from the generator), uniform in [0, 1) unless
+    said otherwise: "inds" [N] int pixel indices in [0, H*W); "noise" [N],
+    the march lattice jitter; "eye_jitter" (eye's shape), the blink jitter
+    (u - 0.5) / 10; "reg_delta" [M, 3] over the step's M samples, the
+    regulariser's jitter (u * 2 - 1) * 1e-3."""
+    later = {"finetune_lips": finetune_lips, "patch_size > 1":
+             patch_size > 1, "train_camera": train_camera,
+             "data_parallel": data_parallel,
+             "train_stage_split": train_stage_split > 0}
+    for what, on in later.items():
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet (a later slice of the training "
+                "port)")
+    dev = next(field.parameters()).device
+    aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
+    S = settings.max_steps
+
+    def draw(draws, gen, name, make):
+        got = draws.get(name)
+        if got is not None:
+            return got.to(dev)
+        if gen is None:
+            raise ValueError(f"the step needs a generator for {name!r}")
+        return make(gen)
+
+    def step_fn(state: TrainState, occ: OccupancyState, batch: Mapping,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Mapping] = None) -> Dict:
+        draws = draws or {}
+        step = state.step
+        step_factor = min(_f32_ratio(step, iters), 1.0)
+        inds = draw(draws, generator, "inds", lambda g: torch.randint(
+            0, H * W, (min(num_rays, H * W),), generator=g, device=dev))
+        rays = get_rays(batch["pose"][None], intrinsics, H, W, inds=inds)
+        rays_o, rays_d = rays["rays_o"][0], rays["rays_d"][0]
+        gt = batch["image"].reshape(-1, 3).index_select(0, inds)
+        face = batch["face_mask"].reshape(-1).index_select(0, inds)
+        bg = batch["bg_color"].reshape(-1, 3).index_select(0, inds)
+        N = gt.shape[0]
+        noise = draw(draws, generator, "noise",
+                     lambda g: torch.rand((N,), generator=g, device=dev))
+
+        state.opt.zero_grad()
+        enc_a = field.encode_audio_train(batch["auds"])
+        c = field.individual_codes[batch["index"]] if ind_dim > 0 else None
+        u = draw(draws, generator, "eye_jitter", lambda g: torch.rand(
+            batch["eye"].shape, generator=g, device=dev))
+        eye = batch["eye"] + (u - 0.5) / 10
+        tables = field.bake_train_tables()
+
+        def field_fn(pts, dirs):
+            return field(pts, dirs, enc_a, c, eye,
+                         compute_uncertainty=unc_loss, packed=tables)
+
+        ray_weight = None
+        if train_budget > 0:
+            res = render_rays_train_compact(
+                field_fn, settings, occ, rays_o, rays_d, bg, train_budget,
+                noise=noise, aabb=aabb)
+            ray_weight = res["ray_weight"]
+        else:
+            res = render_rays(field_fn, settings, occ, rays_o, rays_d, bg,
+                              noise=noise, training=True, aabb=aabb)
+        loss = head_losses(res, res["image"], gt, face, step_factor,
+                           unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
+                           amb_eye_loss=amb_eye_loss, lambda_amb=lambda_amb,
+                           max_steps=S, ray_weight=ray_weight)
+
+        if step % update_extra_interval == 0:
+            pts, d_s, mask = res["rays"]
+            u = draw(draws, generator, "reg_delta", lambda g: torch.rand(
+                pts.shape, generator=g, device=dev))
+            reg = jitter_regulariser(
+                field, pts, d_s, mask, enc_a, c, eye, (u * 2 - 1) * 1e-3,
+                tables, unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
+                amb_eye_loss=amb_eye_loss)
+            loss = loss + step_factor * 1e-5 * reg
+
+        loss.backward()
+        state.opt.step()
+        state.step = new_step = step + 1
+        if new_step % ema_interval == 0:
+            # decay 0.95 once per ema_interval steps is the reference's own
+            # schedule (torch-ema gated on the step), not a bug
+            with torch.no_grad():
+                for n, p in field.named_parameters():
+                    e = state.ema[n]
+                    e.copy_(ema_decay * e + (1 - ema_decay) * p)
+
+        with torch.no_grad():
+            metrics = {
+                "loss": loss.detach(),
+                "mse": torch.mean((res["image"] - gt) ** 2),
+                "weights_sum": torch.mean(res["weights_sum"]),
+                "lr_factor": float(np.float32(0.5) ** np.float32(
+                    _f32_ratio(new_step, iters))),
+                "grad_notfinite": state.opt.total_notfinite,
+            }
+            if ray_weight is not None:
+                metrics["n_active"] = res["n_active"]
+                metrics["n_active_over"] = res["n_active"] - train_budget
+        return metrics
+
+    return step_fn
+
+
+@contextlib.contextmanager
+def _params_swapped(field: NeRFField, values: Mapping[str, torch.Tensor]):
+    """Run with the field's parameters set to `values`, then put them
+    back."""
+    saved = {n: p.detach().clone() for n, p in field.named_parameters()}
+    with torch.no_grad():
+        for n, p in field.named_parameters():
+            p.copy_(values[n])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for n, p in field.named_parameters():
+                p.copy_(saved[n])
+
+
+def make_eval_step(field: NeRFField, settings: RenderSettings, *, H: int,
+                   W: int, intrinsics: Tuple[float, float, float, float],
+                   ind_dim: int = 4, use_ema: bool = False):
+    """Full-frame eval render (render_rays, no jitter, individual code 0):
+    eval(state, occ, batch) -> dict of [H, W(, 3)] maps and the frame's
+    mse ("loss")."""
+    dev = next(field.parameters()).device
+    aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, occ: OccupancyState, batch: Mapping):
+        ctx = (_params_swapped(field, state.ema) if use_ema
+               else contextlib.nullcontext())
+        with ctx:
+            rays = get_rays(batch["pose"][None], intrinsics, H, W)
+            enc_a = field.encode_audio_train(batch["auds"])
+            c = field.individual_codes[0] if ind_dim > 0 else None
+            eye = batch["eye"]
+            tables = field.bake_train_tables()
+
+            def field_fn(pts, dirs):
+                return field(pts, dirs, enc_a, c, eye, packed=tables)
+
+            res = render_rays(field_fn, settings, occ, rays["rays_o"][0],
+                              rays["rays_d"][0],
+                              batch["bg_color"].reshape(-1, 3), aabb=aabb)
+        gt = batch["image"].reshape(-1, 3)
+        return {"image": res["image"].reshape(H, W, 3),
+                "depth": res["depth"].reshape(H, W),
+                "ambient_aud": res["ambient_aud"].reshape(H, W),
+                "ambient_eye": res["ambient_eye"].reshape(H, W),
+                "uncertainty": res["uncertainty"].reshape(H, W),
+                "loss": torch.mean((res["image"] - gt) ** 2)}
+
+    return eval_fn

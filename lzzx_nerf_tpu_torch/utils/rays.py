@@ -1,11 +1,12 @@
-"""Ray generation (port of lzzx_nerf_tpu/utils/rays.py, full-frame mode).
+"""Ray generation (port of lzzx_nerf_tpu/utils/rays.py: all pixels, or
+the pixels a training step draws).
 
 Same pixel convention as the JAX package: pixel centres at +0.5, pinhole
 model, directions normalised then rotated by the c2w rotation."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -20,15 +21,18 @@ def get_bg_coords(H: int, W: int, device=None) -> torch.Tensor:
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)[None]
 
 
-def get_rays(poses: torch.Tensor, intrinsics, H: int, W: int
-             ) -> Dict[str, torch.Tensor]:
-    """All H*W rays of each pose. poses [B, 4, 4] c2w -> dict(rays_o,
-    rays_d [B, H*W, 3])."""
+def get_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
+             inds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Rays of each pose through the pixels `inds` (flat row-major
+    indices, drawn by the caller: the JAX package's random-N mode), all
+    H*W pixels when None. poses [B, 4, 4] c2w -> dict(rays_o,
+    rays_d [B, n, 3])."""
     dev = poses.device
     # float32 values as Python scalars: no host-to-device copy, so the
     # frame records into a CUDA graph
     fx, fy, cx, cy = [float(np.float32(v)) for v in intrinsics]
-    inds = torch.arange(H * W, device=dev)
+    if inds is None:
+        inds = torch.arange(H * W, device=dev)
     i = (inds % W).to(torch.float32) + 0.5
     j = torch.div(inds, W, rounding_mode="floor").to(torch.float32) + 0.5
     zs = torch.ones_like(i)

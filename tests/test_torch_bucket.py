@@ -43,6 +43,7 @@ from lzzx_nerf_tpu_torch.serving.state_io import (load_trained_state,
                                                   params_from_jax)
 from lzzx_nerf_tpu_torch.utils import get_rays as t_get_rays
 from lzzx_nerf_tpu_torch.utils import rgb_to_yuv420 as t_yuv
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 STATE = os.path.join(REPO, "trained", "production_state.pkl")

@@ -290,8 +290,10 @@ def test_session_graph_equals_eager(cuda):
     state = os.path.join(os.path.dirname(__file__), "..", "trained",
                          "production_state.pkl")
     poses = load_trained_state(state)["meta"]["poses"][:1]
+    # the stage-2 budget pinned at the ray budget: no stage-2 escape
+    # rebuilds the plan between the eager and the captured run
     s = ServingSession(state, device=cuda, res=128, poses=poses, chunk=2,
-                       log=lambda m: None)
+                       log=lambda m: None, stage2_budget=1 << 30)
     rng = np.random.default_rng(4)
     auds = rng.standard_normal((5, 8, 16, 29)).astype(np.float32)
     eyes = [0.2 + 0.03 * f for f in range(5)]

@@ -30,6 +30,7 @@ from lzzx_nerf_tpu_torch.ops import fused_field as tff
 from lzzx_nerf_tpu_torch.ops.sh import sh_encode
 from lzzx_nerf_tpu_torch.serving.state_io import (load_trained_state,
                                                   params_from_jax)
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 STATE = os.path.join(ROOT, "trained", "production_state.pkl")

@@ -22,6 +22,7 @@ from lzzx_nerf_tpu_torch.ops import march2 as tm2
 from lzzx_nerf_tpu_torch.ops.march_select import (march_select,
                                                   march_select_cuda,
                                                   march_select_reference)
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

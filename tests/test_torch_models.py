@@ -27,6 +27,7 @@ from lzzx_nerf_tpu_torch.ops.sh import sh_encode
 from lzzx_nerf_tpu_torch.serving.state_io import (TORSO_LEAF_PATHS,
                                                   load_trained_state,
                                                   params_from_jax)
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 STATE = os.path.join(os.path.dirname(__file__), "..", "trained",
                      "production_state.pkl")

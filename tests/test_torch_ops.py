@@ -27,6 +27,7 @@ from lzzx_nerf_tpu_torch.ops.ray import near_far_from_aabb as t_nearfar
 from lzzx_nerf_tpu_torch.ops.sh import sh_encode as t_sh
 from lzzx_nerf_tpu_torch.utils import color as tcolor
 from lzzx_nerf_tpu_torch.utils import rays as trays
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 2e-6
 AABB = (-1.0, -0.5, -1.0, 1.0, 0.5, 1.0)

@@ -51,6 +51,7 @@ from lzzx_nerf_tpu_torch.serving.state_io import (load_trained_state,
 from lzzx_nerf_tpu_torch.utils import get_bg_coords as t_bg_coords
 from lzzx_nerf_tpu_torch.utils import get_rays as t_get_rays
 from lzzx_nerf_tpu_torch.utils import rgb_to_yuv420 as t_yuv
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 STATE = os.path.join(REPO, "trained", "production_state.pkl")
@@ -312,6 +313,9 @@ def _session128(**kw):
     from lzzx_nerf_tpu_torch.serving import ServingSession
 
     st = load_trained_state(STATE)
+    # the stage-2 budget pinned at the ray budget, which holds every
+    # survivor: these cases exercise the other escapes only
+    kw = {"stage2_budget": 1 << 30, **kw}
     return ServingSession(STATE, device="cpu", res=128, chunk=2,
                           poses=st["meta"]["poses"][:1], **kw)
 

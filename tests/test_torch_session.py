@@ -17,14 +17,21 @@ import torch
 from lzzx_nerf_tpu_torch import bench
 from lzzx_nerf_tpu_torch.serving import ServingSession
 from lzzx_nerf_tpu_torch.serving.state_io import load_trained_state
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 STATE = os.path.join(REPO, "trained", "production_state.pkl")
 
 
+# a stage-2 budget the session caps at its ray budget, which holds every
+# stage-2 survivor: tests of other behaviour render with no stage-2 escape
+NO_STAGE2_ESCAPE = 1 << 30
+
+
 def _session(**kw):
     poses = load_trained_state(STATE)["meta"]["poses"][:1]
-    kw = {"chunk": 2, "log": lambda m: None, **kw}
+    kw = {"chunk": 2, "log": lambda m: None,
+          "stage2_budget": NO_STAGE2_ESCAPE, **kw}
     return ServingSession(STATE, device="cpu", res=128, poses=poses, **kw)
 
 
@@ -41,7 +48,7 @@ def test_session_plan_holds_its_frames():
     rays x 1.25 rounded up to the granule; the stage-2 budget is 0.375 of
     the ray budget, in 1024-slot steps (the JAX session's)."""
     logs = []
-    s = _session(log=logs.append)
+    s = _session(log=logs.append, stage2_budget=0)
     assert s.bucket is not None and s.bucket[0] >= 16
     assert 0 < s.eval_budget < s.budget
     assert s.long_budget == s.budget - s.bucket[1]
@@ -53,12 +60,41 @@ def test_session_plan_holds_its_frames():
     assert 0 < max(out["n_real"]) <= s.eval_budget
     assert s.eval_budget == -(-int(max(out["n_real"]) * 1.25)
                               // s.gran) * s.gran
-    # pose 0 overflows the stage-2 budget at 128² (a warning of its own,
-    # no escape); nothing else warns
+    # pose 0 overflows the stage-2 budget at 128²: its warning asks for
+    # the stage-2 escape's rebuild, which the next render() makes; nothing
+    # else warns, and this one-chunk render rebuilds nothing
     assert not [m for m in logs if "[WARN]" in m and "stage-2" not in m]
-    assert not [m for m in logs if "rebuild" in m]
+    assert not [m for m in logs if "rebuild at a chunk boundary" in m]
+    assert s.rebuild_pending()
     assert any(m.startswith("plan: K2=") and "eval_budget=" in m
                for m in logs)
+
+
+def test_stage2_overflow_rebuilds_once():
+    """The port's stage-2 escape (the JAX session warns and truncates
+    instead): from a stage-2 budget of 256 the session warns, streams every
+    frame and rebuilds once at the next chunk boundary with 1.25 x the
+    observed survivors in whole granules; the frames after the rebuild
+    (chunk 3: frames 4, 5) equal a session built with that stage-2 budget,
+    and frame 0 was visibly cut."""
+    auds, eyes = _inputs(6)
+    logs = []
+    s = _session(log=logs.append, stage2_budget=256)
+    out = s.render(auds, eyes)
+    assert len(out["frames"]) == 6
+    assert any("stage-2 survivors exceed the stage-2 budget 256" in m
+               and "rebuilding" in m for m in logs), logs
+    assert sum("rebuild at a chunk boundary" in m for m in logs) == 1
+    first = max(out["n_stage2"][:2])
+    assert s.stage2_budget == min(s.budget,
+                                  -(-int(first * 1.25) // s.gran) * s.gran)
+    assert max(out["n_stage2"]) <= s.stage2_budget
+    conv = _session(stage2_budget=s.stage2_budget)
+    assert conv.stage2_budget == s.stage2_budget
+    conv_out = conv.render(auds, eyes)
+    for f in (4, 5):
+        np.testing.assert_array_equal(out["frames"][f], conv_out["frames"][f])
+    assert not np.array_equal(out["frames"][0], conv_out["frames"][0])
 
 
 def test_masked_ema_after_reset_equals_fresh_session():
