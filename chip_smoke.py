@@ -51,7 +51,25 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      loss of the first and last 30 steps (the last must average under 0.8
      of the first) and the 256² eval PSNR over 4 frames before and after
      (it must rise); then torch.profiler's top-10 kernels of one
-     compacted step and the share of the table-gradient scatter.
+     compacted step and the share of the table-gradient scatter;
+ 12. lips: the lips finetune (LPIPS; neither hand kernel). One lips step at
+     step 5 (48², grid 32, the 32² crop) on the card and on the CPU from
+     one seeded init and the same draws, held to the [train] tolerances;
+     then LIPS_STEPS steps at the production point (512², grid 128, the
+     64² crop) over the head run: steps/s, peak memory, launch counts;
+     and torch.profiler's top kernels of one step;
+ 13. torso: one torso step at step 5 and one torso refresh (48², grid
+     32) on the card against the CPU; then TORSO_STEPS steps at the
+     production point (65,536 rays, the torso grid refreshed every 16):
+     steps/s, refresh seconds, peak memory, host syncs, the loss (the
+     last 30 steps must average lower than the first 30), the torso eval
+     PSNR, launch counts; and torch.profiler's top kernels of one step;
+ 14. recipe: the port's entry point runs head, lips and torso at a reduced
+     depth (RECIPE_ARGS) and writes production_state.pkl; a ServingSession
+     on the card serves it: one eager chunk with every kernel launch held
+     to its plain version, then the chunk captured, launch counts set to
+     0 just before and read just after (both kernels must launch), its
+     frames byte-equal to the eager ones.
 Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
 line.
 """
@@ -59,6 +77,7 @@ line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -92,6 +111,16 @@ TRAIN_LOSS_RTOL = 2e-5
 TRAIN_GRAD_RTOL, TRAIN_GRAD_TAIL = 1e-3, 1e-5
 TRAIN_GRAD_EXEMPT, TRAIN_GRAD_L2 = 2e-2, 1e-2
 TRAIN_REG_RTOL = 1e-5
+# steps of the lips finetune and the torso stage at the production point
+# (the recipe runs 2,000 and 100,000; cut to fit the smoke run)
+LIPS_STEPS = 60
+TORSO_STEPS = 160
+# the whole recipe through its entry point, at a reduced depth
+RECIPE_ARGS = ["--res", "128", "--grid", "64", "--frames", "8",
+               "--num-rays", "8192", "--head-iters", "200", "--warmup",
+               "100", "--lips-iters", "20", "--lips-pad", "64",
+               "--torso-iters", "100", "--eval-every", "100", "--eval-res",
+               "128", "--log-every", "10", "--ckpt-every", "100000"]
 
 
 def log(msg: str) -> None:
@@ -164,6 +193,56 @@ def field_errors(out_k, out_p) -> dict:
             "ok": fin and sig_share <= 1.0 and col_share <= 1.0}
 
 
+@contextlib.contextmanager
+def kernels_held(field_checks: list, select_checks: list,
+                 captured: dict = None):
+    """Inside the block, every call of either kernel's wrapper (the field
+    kernel's fused_field_eval, the march select's march_select) also runs
+    its plain version on the same inputs: field launches append (N,
+    field_errors) to field_checks, select launches (G, equal, samples) to
+    select_checks; `captured` keeps the first two launches' arguments of
+    each. Eager renders only (a CUDA graph replays no Python)."""
+    import torch
+
+    from lzzx_nerf_tpu_torch.ops import fused_field as ff
+    from lzzx_nerf_tpu_torch.ops import march2 as m2_mod
+    from lzzx_nerf_tpu_torch.ops import march_select as ms
+
+    orig_field, orig_select = ff.fused_field_eval, ms.march_select
+
+    def keep(a):
+        return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+
+    def cap_field(*a):
+        if captured is not None and len(captured["field"]) < 2:
+            captured["field"].append(keep(a))
+        out = orig_field(*a)
+        fw, pts, dirs, tables, spec, bound = a[:6]
+        out_p = ff.field_reference(fw, pts, dirs, tables, spec, bound)
+        field_checks.append((pts.shape[0], field_errors(
+            torch.cat([out[0][:, None], out[1]], -1), out_p)))
+        return out
+
+    def cap_select(*a, **k):
+        if captured is not None and len(captured["select"]) < 2:
+            captured["select"].append(keep(a))
+        out = orig_select(*a, **k)
+        ref = ms.march_select_reference(*a, **k)
+        select_checks.append((a[1].shape[1], bool(torch.equal(out, ref)),
+                              int((ref >= 0).sum())))
+        return out
+
+    # march2 binds the select wrapper by name; make_fused_apply looks the
+    # field wrapper up in its module at each call
+    m2_mod.march_select = cap_select
+    ff.fused_field_eval = cap_field
+    try:
+        yield
+    finally:
+        m2_mod.march_select = orig_select
+        ff.fused_field_eval = orig_field
+
+
 def select_bound(sel_p, a) -> tuple:
     """The least time the select could take on one launch's inputs a (the
     wrapper's arguments) with its plain output sel_p: (bound ms, bound by,
@@ -192,10 +271,12 @@ def select_bound(sel_p, a) -> tuple:
                else "bytes"), nbytes, ops
 
 
-def _grads_agree(got: dict, want: dict, worst: dict) -> bool:
+def _grads_agree(got: dict, want: dict, worst: dict,
+                 failed: list = None) -> bool:
     """Every gradient of `got` within the CPU parity tests' tolerance of
     `want`; records the largest error over the largest gradient per
-    parameter group in `worst`."""
+    parameter group in `worst`, and (name, entries outside the rule,
+    entries, relative L2) of each parameter that fails in `failed`."""
     import numpy as np
 
     from lzzx_nerf_tpu_torch.train import param_label_fn
@@ -209,7 +290,10 @@ def _grads_agree(got: dict, want: dict, worst: dict) -> bool:
                    + TRAIN_GRAD_TAIL * scale).sum())
         l2 = float(np.linalg.norm(g - ref)
                    / max(np.linalg.norm(ref), 1e-30))
-        ok &= bad <= TRAIN_GRAD_EXEMPT * ref.size and l2 <= TRAIN_GRAD_L2
+        p_ok = bad <= TRAIN_GRAD_EXEMPT * ref.size and l2 <= TRAIN_GRAD_L2
+        ok &= p_ok
+        if not p_ok and failed is not None:
+            failed.append((n, bad, ref.size, f"{l2:.2e}"))
         lab = param_label_fn(n)
         worst[lab] = max(worst.get(lab, 0.0),
                          float(err.max()) / max(scale, 1e-30))
@@ -331,6 +415,353 @@ def train_parity(dev) -> tuple:
     return ok, lines
 
 
+def _card_vs_cpu(dev, build, tag: str) -> tuple:
+    """Run build(d) -> (loss, grads) on the CPU and on `dev`; the loss
+    within TRAIN_LOSS_RTOL and the gradients to the CPU parity tests' rule
+    -> (ok, report line)."""
+    import torch
+
+    (l_cpu, g_cpu), (l_dev, g_dev) = (build(torch.device("cpu")),
+                                      build(dev))
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    worst, failed = {}, []
+    ok = (_grads_agree(g_dev, g_cpu, worst, failed)
+          and loss_err <= TRAIN_LOSS_RTOL)
+    return ok, (
+        f"{tag}: loss {l_dev:.7f} vs {l_cpu:.7f} (rel err {loss_err:.2e}, "
+        f"tol {TRAIN_LOSS_RTOL}); largest gradient error / largest gradient "
+        f"per group { {k: f'{v:.2e}' for k, v in sorted(worst.items())} } "
+        f"{'OK' if ok else f'FAIL {failed}'}")
+
+
+def _grads_of(module) -> dict:
+    import numpy as np
+
+    return {n: (p.grad.detach().cpu().numpy() if p.grad is not None
+                else np.zeros(tuple(p.shape), np.float32))
+            for n, p in module.named_parameters()}
+
+
+def lips_parity(dev) -> tuple:
+    """One lips step at step 5 (48², grid 32, S 8, the 32² crop at the
+    oracle's lips rect, LPIPS on the fixed-seed AlexNet-width backbone) on
+    `dev` and on the CPU from one seeded init and the same draws."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import (SyntheticTalkingHead,
+                                          two_blob_occupancy)
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.render import (RenderSettings,
+                                            init_occupancy_state)
+    from lzzx_nerf_tpu_torch.tools.train_production import lips_rects
+    from lzzx_nerf_tpu_torch.train import (HeadOptimizer, TrainState,
+                                           make_train_step)
+    from lzzx_nerf_tpu_torch.train import lpips as lpips_mod
+
+    G, R, S, PAD, STEP = 32, 48, 8, 32, 5
+    ds = SyntheticTalkingHead(num_frames=8, H=R, W=R)
+    settings = RenderSettings(bound=1.0, cascade=1, grid_size=G,
+                              max_steps=S, dt=2 * 3 ** 0.5 / G, num_cand=28)
+    init = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    frame = dict(ds.frame(0), rect_origin=np.asarray(
+        lips_rects(ds, R, PAD)[0]))
+    g = torch.Generator().manual_seed(3)
+    draws = {"noise": torch.rand((PAD * PAD,), generator=g),
+             "eye_jitter": torch.rand((1,), generator=g)}
+
+    def build(d):
+        field = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).to(d)
+        field.load_state_dict(init)
+        st = TrainState.create(field, HeadOptimizer(
+            field.named_parameters(), 1e-2, 1e-3, 100, finetune_lips=True))
+        st.step = STEP
+        occ = init_occupancy_state(settings, d)._replace(
+            occ=two_blob_occupancy(G, d))
+        step = make_train_step(
+            field, settings, H=R, W=R, intrinsics=ds.intrinsics,
+            num_rays=1024, iters=100, finetune_lips=True, lips_pad=PAD,
+            lpips_params=lpips_mod.random_params(device=d))
+        b = {k: int(v) if k == "index" else
+             torch.as_tensor(np.array(v), device=d) for k, v in frame.items()}
+        m = step(st, occ, b, draws=draws)
+        return float(m["loss"]), _grads_of(field)
+
+    return _card_vs_cpu(dev, build, f"[lips] card vs CPU, lips step {STEP} "
+                        f"(48², grid 32, {PAD}² crop, S {S})")
+
+
+def torso_parity(dev) -> tuple:
+    """One torso step at step 5 (48², grid 32, 1,024 rays, seeded torso
+    with its tables in ±0.5, the lower half of the torso grid occupied)
+    and one torso refresh (the same jitter) on `dev` and on the CPU ->
+    (ok, report lines)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import SyntheticTalkingHead
+    from lzzx_nerf_tpu_torch.models import TorsoField
+    from lzzx_nerf_tpu_torch.render import (RenderSettings,
+                                            init_occupancy_state,
+                                            make_torso_grid_update)
+    from lzzx_nerf_tpu_torch.train import (HeadOptimizer, TrainState,
+                                           make_torso_train_step)
+
+    G, R, N, STEP = 32, 48, 1024, 5
+    ds = SyntheticTalkingHead(num_frames=8, H=R, W=R, torso=True)
+    settings = RenderSettings(bound=1.0, cascade=1, grid_size=G,
+                              max_steps=8, dt=2 * 3 ** 0.5 / G, num_cand=28)
+    g = torch.Generator().manual_seed(4)
+    # tables in ±0.5, as in tests/test_torch_train_torso.py: at the ±1e-4
+    # init the lookup's share of a gradient is rounding, and the deform
+    # net's last layer (whose gradient comes only through the lookup)
+    # would be compared on noise
+    init = {k: ((torch.rand(v.shape, generator=g) - 0.5)
+                if k.startswith("torso_encoder_") else v)
+            for k, v in TorsoField(ind_num=64).init_params(
+                torch.Generator().manual_seed(0)).state_dict().items()}
+    frame = dict(ds.frame(3), bg_color=np.ones((R, R, 3), np.float32))
+    inds = torch.randint(0, R * R, (N,), generator=g)
+    jitter = torch.rand((G * G, 2), generator=g)
+    grid = torch.zeros((G, G))
+    grid[G // 2:] = 0.5
+    grids = {}
+
+    def build(d):
+        torso = TorsoField(ind_num=64).to(d)
+        torso.load_state_dict(init)
+        st = TrainState.create(torso, HeadOptimizer(
+            torso.named_parameters(), 1e-2, 1e-3, 100))
+        st.step = STEP
+        occ = init_occupancy_state(settings, d)._replace(
+            density_grid_torso=grid.to(d),
+            mean_density_torso=torch.tensor(0.25, device=d))
+        b = {k: int(v) if k == "index" else
+             torch.as_tensor(np.array(v), device=d) for k, v in frame.items()}
+        grids[d.type] = make_torso_grid_update(torso, settings, 8)(
+            occ, b["pose"], jitter=jitter.to(d)).density_grid_torso.cpu()
+        step = make_torso_train_step(torso, settings, H=R, W=R, num_rays=N)
+        m = step(st, occ, b, draws={"inds": inds})
+        return float(m["loss"]), _grads_of(torso)
+
+    ok, line = _card_vs_cpu(dev, build, f"[torso] card vs CPU, torso step "
+                            f"{STEP} (48², grid 32, {N} rays)")
+    a, b = grids[dev.type], grids["cpu"]
+    rel = float(((a - b).abs() / b.abs().clamp(min=1e-9)).max())
+    r_ok = rel <= 1e-6 and bool((b > 0).any())
+    return ok and r_ok, [line, (
+        f"[torso] card vs CPU, torso refresh (grid 32, same jitter): largest "
+        f"relative difference {rel:.2e} (tol 1e-6) "
+        f"{'OK' if r_ok else 'FAIL'}")]
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - a
+
+
+def lips_production(run, dev) -> tuple:
+    """The lips finetune at the production point over the [train] phase's
+    HeadRun (512², grid 128): LIPS_STEPS steps on the 64² crop with the
+    default LPIPS weights, both kernels' launch counts around them ->
+    (ok, report lines, the LipsRun)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.tools.train_production import LipsRun
+    from lzzx_nerf_tpu_torch.train import lpips as lpips_mod
+
+    lips = LipsRun(run, 2000, 64, lpips_mod.get_params(device=dev))
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t, losses = [], []
+    for it in range(LIPS_STEPS):
+        m, dt = _timed(lambda: lips.step(it))
+        t.append(dt)
+        losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = dict(kernels.launches)
+    skipped, _ = lips.opt.poll(LIPS_STEPS)
+    losses = torch.stack(losses).cpu().numpy()
+    ok = bool(np.isfinite(losses).all()) and skipped == 0
+    med = float(np.median(t[5:]))
+    return ok, [
+        f"[lips] production point 512², grid 128, 64² lips crop, LPIPS "
+        f"{'npz' if lpips_mod.is_pretrained() else 'rand-feat'}: "
+        f"{1 / med:.2f} steps/s (median {1e3 * med:.2f} ms over "
+        f"{len(t) - 5}); peak memory {peak:.2f} GiB; loss first 10 "
+        f"{float(losses[:10].mean()):.6f}, last 10 "
+        f"{float(losses[-10:].mean()):.6f}; grad_notfinite {skipped}; "
+        f"kernel launches {launches} {'OK' if ok else 'FAIL'}"], lips
+
+
+def torso_production(run, dev) -> tuple:
+    """The torso stage at the production point over the [train] phase's
+    HeadRun (512², grid 128, 65,536 rays a step): TORSO_STEPS steps with
+    the torso grid refreshed every 16; steps/s, refresh seconds, peak
+    memory, the loss of the first and last 30 steps (the last must
+    average lower), the 256² torso eval PSNR before and after, both
+    kernels' launch counts -> (ok, report lines, the TorsoRun)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.tools.train_production import TorsoRun
+
+    t0 = time.perf_counter()
+    torso = TorsoRun(run, 100000)
+    torso.refresh_grid(0)
+    psnr0, _ = torso.eval_psnr()
+    kernels.reset_launches()
+    t_step, t_ref, losses = [], [], []
+    for it in range(TORSO_STEPS):
+        if it % 16 == 0:
+            _, dt = _timed(lambda: torso.refresh_grid(it))
+            t_ref.append(dt)
+        if it == 5:
+            torch.cuda.reset_peak_memory_stats(dev)
+        m, dt = _timed(lambda: torso.train_step(it))
+        t_step.append(dt)
+        losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = dict(kernels.launches)
+    it = TORSO_STEPS
+    syncs = {"none": _syncs(lambda: None),
+             "step": _syncs(lambda: [torso.train_step(it + k)
+                                     for k in (1, 2, 3)])}
+    skipped, _ = torso.opt.poll(it)
+    losses = torch.stack(losses).cpu().numpy()
+    psnr1, per1 = torso.eval_psnr()
+    first, last = float(losses[:30].mean()), float(losses[-30:].mean())
+    ok = bool(np.isfinite(losses).all()) and last < first and skipped == 0
+    med = float(np.median(t_step[5:]))
+    return ok, [
+        f"[torso] production point 512², grid 128, {run.num_rays:,} rays "
+        f"({torso.n_params():,} parameters): {1 / med:.2f} steps/s (median "
+        f"{1e3 * med:.2f} ms over {len(t_step) - 5}); torso refresh (grid "
+        f"128, 16,384 alphas) median {np.median(t_ref[1:]):.4f} s over "
+        f"{len(t_ref) - 1} (first {t_ref[0]:.3f} s); peak memory "
+        f"{peak:.2f} GiB; host syncs over 3 steps {len(syncs['step'])} "
+        f"{sorted(set(syncs['step']))} (the empty call before them: "
+        f"{len(syncs['none'])}); grad_notfinite {skipped}; kernel launches "
+        f"{launches}",
+        f"[torso] loss first 30 steps {first:.6f}, last 30 {last:.6f} (must "
+        f"be lower); torso eval PSNR 256² over frames {run.eval_frames}: "
+        f"{psnr0:.2f} -> {psnr1:.2f} dB {per1} {'OK' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)"], torso
+
+
+def recipe_phase(dev) -> tuple:
+    """The port's whole recipe through its entry point at a reduced depth
+    (RECIPE_ARGS) into a temporary directory, then a ServingSession on the
+    card over the state it wrote: one eager chunk with every kernel launch
+    held to its plain version (FIELD_TOL, the select equal), and the same
+    chunk captured (CUDA graph) with the launch counts set to 0 just
+    before and read just after; its frames byte-equal to the eager ones
+    -> (ok, report lines)."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.serving import ServingSession
+    from lzzx_nerf_tpu_torch.tools import train_production
+
+    lines = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ws:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_production.main(RECIPE_ARGS + ["--workspace", ws])
+        ev = [json.loads(x) for x in buf.getvalue().splitlines()]
+        t_train = time.perf_counter() - t0
+        by = {}
+        for e in ev:
+            by.setdefault((e["event"], e.get("stage")), []).append(e)
+        done = {st: e["minutes"] for (k, st), es in by.items()
+                if k == "stage_done" for e in es}
+        logs = {st: es[-1] for (k, st), es in by.items() if k == "log"}
+        fin = by[("eval_final", "head")][0]
+        t_ok = (rc == 0 and ("done", None) in by
+                and all(np.isfinite(e["loss"]) and e["grad_notfinite"] == 0
+                        for e in ev if e["event"] == "log")
+                and np.isfinite(fin["psnr"]) and np.isfinite(fin["lpips"]))
+        lines.append(
+            f"[recipe] {' '.join(RECIPE_ARGS)}: rc {rc}, {t_train:.1f} s; "
+            f"stage minutes {done}; last loss head "
+            f"{logs['head']['loss']} ({logs['head']['it_s']} it/s), lips "
+            f"{logs['lips']['loss']} ({logs['lips']['it_s']} it/s), torso "
+            f"{logs['torso']['loss']} ({logs['torso']['it_s']} it/s); head "
+            f"eval {[e['psnr'] for e in by[('eval', 'head')]]} dB, lips "
+            f"{by[('eval', 'lips')][0]['psnr']} dB, torso "
+            f"{[e['psnr'] for e in by[('eval', 'torso')]]} dB; final "
+            f"{fin['res']}² PSNR {fin['psnr']} dB, LPIPS {fin['lpips']} "
+            f"({fin['lpips_weights']}) {'OK' if t_ok else 'FAIL'}")
+
+        t1 = time.perf_counter()
+        sess = ServingSession(os.path.join(ws, "production_state.pkl"),
+                              device=dev, chunk=8, log=lambda m: None)
+    rng = np.random.default_rng(7)
+    A = int(sess.meta["audio_dim"])
+    auds = rng.standard_normal((8, 8, 16, A)).astype(np.float32)
+    eyes = [0.15 + 0.1 * np.sin(f / 4) for f in range(8)]
+    # the plan first settles on these frames (an escape rebuilds it at the
+    # next render), so the eager and the captured chunk share one plan
+    rebuilds = 0
+    while True:
+        sess.reset_audio()
+        sess.render(auds, eyes, graph=False)
+        if not sess.rebuild_pending() or rebuilds == 3:
+            break
+        rebuilds += 1
+    field_checks, select_checks = [], []
+    with kernels_held(field_checks, select_checks):
+        sess.reset_audio()
+        eager = sess.render(auds, eyes, graph=False)
+    settled = not sess.rebuild_pending()
+    sess.reset_audio()
+    sess.render(auds, eyes)                  # capture, warm up
+    sess.reset_audio()
+    kernels.reset_launches()
+    cap = sess.render(auds, eyes)
+    launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+    s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
+    same = sum(np.array_equal(a, b)
+               for a, b in zip(cap["frames"], eager["frames"]))
+    launched = (set(launches) == {"fused_field", "march_select"}
+                and all(v > 0 for v in launches.values()))
+    s_all = (f_ok and s_ok and launched and same == 8 and settled
+             and sess.captures >= 1)
+    lines.append(
+        f"[recipe] session on the port-written state: {sess.H}² over "
+        f"{len(sess.poses)} poses, K2={sess.k2} bucket={sess.bucket} "
+        f"budget={sess.budget} eval={sess.eval_budget} stage2="
+        f"{sess.stage2_budget} after {rebuilds} rebuild(s), settled "
+        f"{settled}; eager chunk of 8: field within FIELD_TOL at "
+        f"{sum(e['ok'] for _, e in field_checks)} of {len(field_checks)} "
+        f"launches (max share of tol colour "
+        f"{max((e['color_share'] for _, e in field_checks), default=0):.3f},"
+        f" sigma "
+        f"{max((e['sigma_share'] for _, e in field_checks), default=0):.3f}"
+        f"), select equal at {sum(e for _, e, _ in select_checks)} of "
+        f"{len(select_checks)}; captured chunk launches {launches}, "
+        f"{same} of 8 frames byte-equal to eager, max n_active "
+        f"{max(cap['n_active'])}/{sess.budget} "
+        f"{'OK' if s_all else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+    return t_ok and s_all, lines
+
+
 def _syncs(fn) -> list:
     """The host synchronisations fn makes (torch's sync debug mode), as
     the file:line of the Python call that made each."""
@@ -437,19 +868,18 @@ def train_production(dev) -> tuple:
     return ok, lines, run
 
 
-def train_profile(run) -> list:
-    """torch.profiler's top-10 device kernels of one compacted step and
-    the share of the table-gradient scatter (index_add / scatter
-    kernels)."""
+def train_profile(step, what: str) -> list:
+    """torch.profiler's top-10 device kernels of one training step and the
+    share of the table-gradient scatter (index_add / scatter kernels);
+    step(k) runs a step (k = 0 warms up, k = 1 is profiled)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    it = TRAIN_WARMUP + TRAIN_COMPACT + 5
-    run.train_step(it, True)
+    step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run.train_step(it + 1, True)
+        step(1)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -466,7 +896,7 @@ def train_profile(run) -> list:
         return ["[profile] torch.profiler recorded no device time"]
     scatter = ("indexFunc", "index_add", "scatter_add", "scatter_gather")
     sc = sum(dev_us(e) for e in kern if any(k in e.key for k in scatter))
-    lines = [f"[profile] one compacted step: {total / 1e3:.3f} device ms "
+    lines = [f"[profile] {what}: {total / 1e3:.3f} device ms "
              f"over {sum(e.count for e in kern)} kernels; table-gradient "
              f"scatter (index_add / scatter kernels) {sc / 1e3:.3f} ms, "
              f"share {sc / total:.3f}"]
@@ -512,7 +942,6 @@ def main() -> int:
         return 2
     from lzzx_nerf_tpu_torch import bench, kernels
     from lzzx_nerf_tpu_torch.ops import fused_field as ff
-    from lzzx_nerf_tpu_torch.ops import march2 as m2_mod
     from lzzx_nerf_tpu_torch.ops import march_select as ms
     from lzzx_nerf_tpu_torch.serving import ServingSession
 
@@ -572,40 +1001,9 @@ def main() -> int:
     captured = {"field": [], "select": []}
     field_checks = []   # (N, field_errors) per field launch, in order
     select_checks = []  # (G, equal, samples) per select launch
-    orig_field, orig_select = ff.fused_field_eval, ms.march_select
-
-    def keep(a):
-        return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
-
-    def cap_field(*a):
-        if len(captured["field"]) < 2:
-            captured["field"].append(keep(a))
-        out = orig_field(*a)
-        fw, pts, dirs, tables, spec, bound = a[:6]
-        out_p = ff.field_reference(fw, pts, dirs, tables, spec, bound)
-        field_checks.append((pts.shape[0], field_errors(
-            torch.cat([out[0][:, None], out[1]], -1), out_p)))
-        return out
-
-    def cap_select(*a, **k):
-        if len(captured["select"]) < 2:
-            captured["select"].append(keep(a))
-        out = orig_select(*a, **k)
-        ref = ms.march_select_reference(*a, **k)
-        select_checks.append((a[1].shape[1], bool(torch.equal(out, ref)),
-                              int((ref >= 0).sum())))
-        return out
-
-    # march2 binds the select wrapper by name; make_fused_apply looks the
-    # field wrapper up in its module at each call
-    m2_mod.march_select = cap_select
-    ff.fused_field_eval = cap_field
-    try:
+    with kernels_held(field_checks, select_checks, captured):
         sess.reset_audio()
         run96 = sess.render(auds96, eyes96, pose_ids=pose96, graph=False)
-    finally:
-        m2_mod.march_select = orig_select
-        ff.fused_field_eval = orig_field
     torch.cuda.synchronize()
     field_n = [c[1].shape[0] for c in captured["field"]]
     log(f"[capture] {len(run96['frames'])} eager frames ({P} poses x "
@@ -824,7 +1222,6 @@ def main() -> int:
 
     # ---- a short run of the port bench
     t0 = time.perf_counter()
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -849,11 +1246,54 @@ def main() -> int:
     t_ok, t_lines, run = train_production(dev)
     for line in t_lines:
         log(line)
-    for line in train_profile(run):
+    it0 = TRAIN_WARMUP + TRAIN_COMPACT + 5
+    for line in train_profile(lambda k: run.train_step(it0 + k, True),
+                              "one compacted step"):
         log(line)
     ok &= p_ok and t_ok
-    del run
     log(f"[train] {'OK' if p_ok and t_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the lips finetune (runs neither hand kernel), over the head run
+    t0 = time.perf_counter()
+    l_ok, line = lips_parity(dev)
+    log(line)
+    lp_ok, lines, lips = lips_production(run, dev)
+    for line in lines:
+        log(line)
+    for line in train_profile(lambda k: lips.step(LIPS_STEPS + k),
+                              "one lips step"):
+        log(line)
+    lips.finish()
+    del lips
+    ok &= l_ok and lp_ok
+    log(f"[lips] {'OK' if l_ok and lp_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the torso stage (runs neither hand kernel), over the head run
+    t0 = time.perf_counter()
+    tp_ok, lines = torso_parity(dev)
+    for line in lines:
+        log(line)
+    tt_ok, lines, torso = torso_production(run, dev)
+    for line in lines:
+        log(line)
+    for line in train_profile(
+            lambda k: torso.train_step(TORSO_STEPS + 10 + k),
+            "one torso step"):
+        log(line)
+    ok &= tp_ok and tt_ok
+    del run, torso
+    log(f"[torso] {'OK' if tp_ok and tt_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the whole recipe at a reduced depth, served on the card
+    t0 = time.perf_counter()
+    r_ok, lines = recipe_phase(dev)
+    for line in lines:
+        log(line)
+    ok &= r_ok
+    log(f"[recipe] {'OK' if r_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # per frame: both field launches (stage 1, stage 2) and both select

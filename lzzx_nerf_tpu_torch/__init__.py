@@ -1,11 +1,13 @@
-"""PyTorch/CUDA port of lzzx_nerf_tpu: the serving path and the head
-training stage.
+"""PyTorch/CUDA port of lzzx_nerf_tpu: the serving path and the training
+recipe (head, lips finetune with LPIPS, torso), whose production state the
+port's own session serves.
 
 A second package beside the JAX one: plain tensor code is PyTorch, and the
 two Pallas kernels of the serving frame (the fused field MLP and the nb5w
 march select) are hand-written CUDA kernels for Hopper (``csrc/``), built
 with nvcc at first use (``kernels.py``). Training runs PyTorch autograd
-(the JAX package differentiates plain XLA there: no kernel to port).
+(the JAX package differentiates plain XLA there: no kernel to port), and
+LPIPS's convolutions are PyTorch's.
 
 The package imports torch, numpy and the standard library only — never
 JAX and never ``lzzx_nerf_tpu``. Entry points run on ``cuda`` unless the

@@ -1,6 +1,6 @@
 """Triplane audio-conditioned NeRF field + torso model (port of
-lzzx_nerf_tpu/models/nerf.py): the head field's training forward
-(density, forward) and the serving subset.
+lzzx_nerf_tpu/models/nerf.py): the head field's and the torso's
+training forwards and the serving subset.
 
 Parameters are named like the flax params tree (encoder_xy_l0,
 sigma_net.net_0.weight, audio_net.Conv_0.weight, ...), so
@@ -22,10 +22,14 @@ from ..ops.freq import freq_encode
 from ..ops.packed_triplane import (DenseTriplaneSpec, bake_packed,
                                    dense_triplane_encode, encode_triplanes)
 from ..ops.sh import sh_encode
+from ..utils.clip import clip
 from .audio import AudioAttNet, AudioNet
 from .mlp import MLP
 
 PLANES = ("xy", "yz", "xz")
+# the torso's anchor points at initialisation (the JAX TorsoField's)
+ANCHOR_POINTS = ((0.01, 0.01, 0.1, 1.0), (-0.1, -0.1, 0.1, 1.0),
+                 (0.1, -0.1, 0.1, 1.0))
 
 
 class DensityOutputs(NamedTuple):
@@ -224,7 +228,8 @@ def make_fused_apply(field: NeRFField, packed: Dict[str, torch.Tensor],
 
 class TorsoField(nn.Module):
     """2-D deformation-field torso model, dense encoder (port of the JAX
-    TorsoField)."""
+    TorsoField): the serving forward on a baked table, and the training
+    forward (train_forward) with the table baked in its autograd graph."""
 
     def __init__(self, torso_shrink: float = 0.8, ind_dim_torso: int = 8,
                  ind_num: int = 10_000):
@@ -232,9 +237,7 @@ class TorsoField(nn.Module):
         self.torso_shrink = torso_shrink
         self.dense_spec = DenseTriplaneSpec()
         spec = self.dense_spec
-        self.anchor_points = nn.Parameter(torch.tensor(
-            [[0.01, 0.01, 0.1, 1.0], [-0.1, -0.1, 0.1, 1.0],
-             [0.1, -0.1, 0.1, 1.0]]))
+        self.anchor_points = nn.Parameter(torch.tensor(ANCHOR_POINTS))
         for lvl, (r, c) in enumerate(zip(spec.resolutions, spec.channels)):
             self.register_parameter(
                 f"torso_encoder_l{lvl}",
@@ -247,11 +250,43 @@ class TorsoField(nn.Module):
             self.individual_codes_torso = nn.Parameter(
                 torch.zeros(ind_num, ind_dim_torso))
 
+    def levels(self):
+        return [getattr(self, f"torso_encoder_l{lvl}")
+                for lvl in range(len(self.dense_spec.resolutions))]
+
     @torch.no_grad()
     def bake_table(self, dtype=torch.float32) -> torch.Tensor:
-        levels = [getattr(self, f"torso_encoder_l{lvl}")
-                  for lvl in range(len(self.dense_spec.resolutions))]
-        return bake_packed(levels, self.dense_spec, dtype=dtype)
+        return bake_packed(self.levels(), self.dense_spec, dtype=dtype)
+
+    def bake_train_table(self) -> torch.Tensor:
+        """The float32 packed table baked inside the autograd graph (the
+        JAX TorsoField's in-graph bake)."""
+        return bake_packed(self.levels(), self.dense_spec)
+
+    def _deform_inputs(self, x, pose, c, inv_pose_t):
+        """The shrunk coords [N, 2] and the deform/torso nets' shared input
+        h [N, 84]: freq(x, 8), freq of the anchors projected through the
+        inverse transposed pose (3), and the individual code."""
+        N = x.shape[0]
+        x = x * self.torso_shrink
+        if inv_pose_t is None:
+            # inv_ex: no host check of the result (a step makes no sync)
+            inv_pose_t = torch.linalg.inv_ex(pose.T).inverse
+        wrapped = self.anchor_points @ inv_pose_t               # [3, 4]
+        wrapped = (wrapped[:, :2] / wrapped[:, 3:4]
+                   / wrapped[:, 2:3]).reshape(1, -1)
+        enc_anchor = freq_encode(wrapped, 3)                    # [1, 42]
+        enc_x = freq_encode(x, 8)                               # [N, 34]
+        parts = [enc_x, enc_anchor.expand(N, -1)]
+        if c is not None:
+            parts.append(c.reshape(1, -1).expand(N, -1))
+        return x, torch.cat(parts, dim=-1)
+
+    def _outputs(self, feat, h):
+        h = self.torso_net(torch.cat([feat, h], dim=-1))
+        alpha = torch.sigmoid(h[..., :1]) * (1 + 2 * 0.001) - 0.001
+        color = torch.sigmoid(h[..., 1:]) * (1 + 2 * 0.001) - 0.001
+        return alpha, color
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, pose: torch.Tensor,
@@ -261,23 +296,42 @@ class TorsoField(nn.Module):
         (alpha [N, 1], color [N, 3], dx [N, 2]). inv_pose_t: the inverse
         of pose.T when the caller has it (torch.linalg.inv checks its
         result on the host, so a CUDA graph takes it as an input)."""
-        N = x.shape[0]
-        x = x * self.torso_shrink
-        if inv_pose_t is None:
-            inv_pose_t = torch.linalg.inv(pose.T)
-        wrapped = self.anchor_points @ inv_pose_t               # [3, 4]
-        wrapped = (wrapped[:, :2] / wrapped[:, 3:4]
-                   / wrapped[:, 2:3]).reshape(1, -1)
-        enc_anchor = freq_encode(wrapped, 3)                    # [1, 42]
-        enc_x = freq_encode(x, 8)                               # [N, 34]
-        parts = [enc_x, enc_anchor.expand(N, -1)]
-        if c is not None:
-            parts.append(c.reshape(1, -1).expand(N, -1))
-        h = torch.cat(parts, dim=-1)
+        x, h = self._deform_inputs(x, pose, c, inv_pose_t)
         dx = self.torso_deform_net(h)
         xd = torch.clamp(x + dx, -1.0, 1.0)
         feat = dense_triplane_encode(packed, xd, self.dense_spec, bound=1.0)
-        h = self.torso_net(torch.cat([feat, h], dim=-1))
-        alpha = torch.sigmoid(h[..., :1]) * (1 + 2 * 0.001) - 0.001
-        color = torch.sigmoid(h[..., 1:]) * (1 + 2 * 0.001) - 0.001
-        return alpha, color, dx
+        return (*self._outputs(feat, h), dx)
+
+    def train_forward(self, x: torch.Tensor, pose: torch.Tensor,
+                      c: Optional[torch.Tensor],
+                      packed: Optional[torch.Tensor] = None):
+        """forward with gradients (the JAX TorsoField.__call__): the table
+        baked in the graph unless `packed` (bake_train_table) is given, and
+        jnp.clip's half gradient where x + dx lands on ±1."""
+        x, h = self._deform_inputs(x, pose, c, None)
+        dx = self.torso_deform_net(h)
+        xd = clip(x + dx, -1.0, 1.0)
+        if packed is None:
+            packed = self.bake_train_table()
+        feat = dense_triplane_encode(packed, xd, self.dense_spec, bound=1.0)
+        return (*self._outputs(feat, h), dx)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "TorsoField":
+        """Draw the parameters from `generator` with the JAX TorsoField's
+        initialisers: tables uniform in ±1e-4, individual codes normal x
+        0.1, kernels torch_linear_init (uniform in ±1/sqrt(fan-in)), the
+        anchor points fixed. Returns self."""
+        for name, p in self.named_parameters():
+            if name == "anchor_points":
+                p.copy_(torch.tensor(ANCHOR_POINTS))
+                continue
+            if name == "individual_codes_torso":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) * 0.1)
+                continue
+            bound = (1e-4 if name.startswith("torso_encoder_")
+                     else 1.0 / math.sqrt(p.shape[1]))
+            u = torch.rand(p.shape, generator=generator, device=p.device)
+            p.copy_((u * 2.0 - 1.0) * bound)
+        return self

@@ -18,6 +18,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.clip import clip
+
 
 @dataclass(frozen=True)
 class DenseTriplaneSpec:
@@ -123,7 +125,9 @@ def packed_lookup(packed: torch.Tensor, xy01: torch.Tensor,
     f32 (a bf16 table is upcast right after the gather)."""
     P = spec.pack_res
     in_bounds = ((xy01 >= 0.0) & (xy01 <= 1.0)).all(dim=-1)
-    u = torch.clamp(xy01, 0.0, 1.0)
+    # jnp.clip's half gradient at 0 and 1 (the torso's clipped coords land
+    # there)
+    u = clip(xy01, 0.0, 1.0)
     pc = torch.clamp(torch.floor(u * P), 0, P - 1).to(torch.int64)
     rows = packed.index_select(0, pc[:, 0] * P + pc[:, 1]).to(torch.float32)
 

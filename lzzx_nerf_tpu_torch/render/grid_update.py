@@ -1,16 +1,19 @@
 """Occupancy-grid maintenance (port of lzzx_nerf_tpu/render/grid_update.py:
-update_density_grid, the head refresh of make_density_grid_update, and
+update_density_grid, the head refresh of make_density_grid_update,
+update_torso_grid and its refresh make_torso_grid_update, and
 mark_untrained_grid).
 
 The jitter of a refresh is an explicit input: one [H^3, 3] uniform draw in
-[0, 1) per cascade, from a generator or given by the caller (the parity
-tests pass the JAX package's draws)."""
+[0, 1) per cascade for the head, one [H^2, 2] draw for the torso, from a
+generator or given by the caller (the parity tests pass the JAX package's
+draws)."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.nn import functional as F
 
 from ..ops.morton import dilate_grid3d
 from .state import OccupancyState, RenderSettings
@@ -96,6 +99,67 @@ def make_density_grid_update(field, settings: RenderSettings,
 
         return update_density_grid(density_fn, settings, state, jitter,
                                    decay=decay)
+
+    return refresh
+
+
+@torch.no_grad()
+def update_torso_grid(torso_alpha_fn: Callable, settings: RenderSettings,
+                      state: OccupancyState, pose: torch.Tensor,
+                      ind_code_torso: Optional[torch.Tensor],
+                      jitter: torch.Tensor, decay: float = 0.95
+                      ) -> OccupancyState:
+    """One torso-grid refresh: the torso's alpha at every jittered cell of
+    the 2-D lattice, a 5x5 max-pool dilation (stride 1, padded with -inf),
+    EMA-max with the old grid; mean_density_torso is the plain mean.
+
+    torso_alpha_fn(xys [M, 2], pose, code) -> alpha [M]; jitter: the
+    cells' [H^2, 2] uniform draw. The value of cell (c0, c1) lands at row
+    c1, column c0 (the reference's transposed flat index, matching the
+    lookup's grid_sample convention)."""
+    H = settings.grid_size
+    dev = state.density_grid_torso.device
+    r = torch.arange(H, device=dev)
+    cx, cy = torch.meshgrid(r, r, indexing="ij")
+    coords = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
+    half = 1.0 / H
+    xys = (2.0 * coords.to(torch.float32) / (H - 1) - 1.0) * (1.0 - half)
+    xys = xys + (jitter * 2.0 - 1.0) * half
+    alphas = torso_alpha_fn(xys, pose, ind_code_torso)
+    tmp = torch.zeros((H, H), device=dev)
+    tmp[coords[:, 1], coords[:, 0]] = alphas
+    # max_pool2d pads with -inf, as the reference's reduce_window "SAME"
+    tmp = F.max_pool2d(tmp[None, None], 5, stride=1, padding=2)[0, 0]
+    new = torch.maximum(state.density_grid_torso * decay, tmp)
+    return state._replace(density_grid_torso=new,
+                          mean_density_torso=torch.mean(new))
+
+
+def make_torso_grid_update(torso, settings: RenderSettings,
+                           ind_dim_torso: int, decay: float = 0.95):
+    """The every-16-steps torso refresh: refresh(state, pose,
+    generator=None, jitter=None) -> state. Bakes the torso table once and
+    queries its alpha with individual code 0 (the JAX refresh's code, not
+    the frame's). jitter replaces the generator's draw."""
+
+    @torch.no_grad()
+    def refresh(state: OccupancyState, pose: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                jitter: Optional[torch.Tensor] = None) -> OccupancyState:
+        dev = state.density_grid_torso.device
+        if jitter is None:
+            if generator is None:
+                raise ValueError("refresh needs a generator or the jitter")
+            H = settings.grid_size
+            jitter = torch.rand((H * H, 2), generator=generator, device=dev)
+        c = torso.individual_codes_torso[0] if ind_dim_torso > 0 else None
+        packed = torso.bake_train_table()
+
+        def alpha_fn(xys, pose_, cc):
+            return torso.train_forward(xys, pose_, cc, packed)[0][:, 0]
+
+        return update_torso_grid(alpha_fn, settings, state, pose, c, jitter,
+                                 decay=decay)
 
     return refresh
 

@@ -2,8 +2,8 @@
 -> staged field eval + composite -> block scatter + background (port of
 render_rays_compact_blocks and the torso pass of
 lzzx_nerf_tpu/render/renderer.py); and the training renders: render_rays
-(the full-path march, training and eval) and render_rays_train_compact
-(window-compacted rays).
+(the full-path march, training and eval), render_rays_train_compact
+(window-compacted rays) and run_torso (the dense torso pass).
 
 The JAX package scatters with mode="drop" to sentinel indices; here every
 such scatter writes to one extra discarded row instead, so an out-of-range
@@ -521,3 +521,26 @@ def run_torso_compact(torso_apply, plan: TorsoPlan, pose: torch.Tensor,
     ext = torch.cat([bg_color, bg_color.new_zeros((1, 3))])
     ext[plan.idx] = blended
     return ext[:N]
+
+
+def run_torso(torso_apply: Callable, settings: RenderSettings,
+              state: OccupancyState, bg_coords: torch.Tensor,
+              pose: torch.Tensor, ind_code_torso: Optional[torch.Tensor],
+              bg_color: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The torso pass of the training step and its eval: the torso field
+    on every pixel of bg_coords [N, 2] (dense), masked to the cells of
+    the torso grid above min(density_thresh_torso, mean_density_torso),
+    composited over bg_color [N, 3]. torso_apply(coords, pose, code) ->
+    (alpha [N, 1], color [N, 3], dx [N, 2]). "torso_color" is the
+    composite (what the torso loss compares with the target), as in the
+    JAX package."""
+    thresh = torch.clamp(state.mean_density_torso,
+                         max=settings.density_thresh_torso)
+    occupancy = _bilinear_sample_2d(state.density_grid_torso, bg_coords)
+    mask = (occupancy > thresh).to(torch.float32)[:, None]
+    alpha, color, deform = torso_apply(bg_coords, pose, ind_code_torso)
+    alpha = alpha * mask
+    color = color * mask
+    new_bg = color * alpha + bg_color * (1.0 - alpha)
+    return {"bg_color": new_bg, "torso_alpha": alpha, "torso_color": new_bg,
+            "deform": deform}

@@ -1,14 +1,16 @@
-"""Load a trained state written by the JAX package
-(scripts/train_production.py: trained/production_state.pkl) without JAX.
+"""Load a trained state without JAX: the one the JAX package writes
+(scripts/train_production.py: trained/production_state.pkl) or the port's
+(lzzx_nerf_tpu_torch/tools/train_production.py).
 
-The pickle stores the torso tree's structure as pickled JAX PyTreeDef
+The JAX pickle stores the trees' structure as pickled JAX PyTreeDef
 objects; unpickling them would import jax. _StateUnpickler hands back an
-inert stub for every jax/jaxlib class instead, and the torso tree is
-rebuilt from its leaves, which are stored in the sorted key-path order of
-the flax params tree (TORSO_LEAF_PATHS). params_from_jax then maps flax
-Dense [in, out] and Conv [k, in, out] kernels onto the PyTorch layouts of
-the port's modules (Linear [out, in], Conv1d [out, in, k]), keyed by the
-modules' state_dict names.
+inert stub for every jax/jaxlib class instead; the port's file has no
+treedef. Either way the torso tree is rebuilt from its leaves, which are
+stored in the sorted key-path order of the flax params tree
+(TORSO_LEAF_PATHS; flatten_paths gives the writer that order).
+params_from_jax then maps flax Dense [in, out] and Conv [k, in, out]
+kernels onto the PyTorch layouts of the port's modules (Linear [out, in],
+Conv1d [out, in, k]), keyed by the modules' state_dict names.
 """
 
 from __future__ import annotations
@@ -67,6 +69,18 @@ def _nest(paths, leaves) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[last] = np.asarray(leaf)
     return tree
+
+
+def flatten_paths(tree: Dict[str, Any], prefix: str = ""
+                  ) -> Dict[str, np.ndarray]:
+    """Nested dicts of arrays -> {"a/b/c": array} (the inverse of _nest)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flatten_paths(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(val)
+    return out
 
 
 def load_trained_state(path: str) -> Dict[str, Any]:

@@ -1,5 +1,5 @@
-"""The head-stage loss stack (port of lzzx_nerf_tpu/train/losses.py:
-head_losses, binary_entropy, entropy_loss). Every stop_gradient of the
+"""The loss stacks (port of lzzx_nerf_tpu/train/losses.py: head_losses,
+torso_losses, binary_entropy, entropy_loss). Every stop_gradient of the
 JAX package is a detach here."""
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ def head_losses(outputs: Dict, pred_rgb: torch.Tensor, gt_rgb: torch.Tensor,
                 face_mask: torch.Tensor, step_factor: float,
                 unc_loss: bool = True, amb_aud_loss: bool = True,
                 amb_eye_loss: bool = True, lambda_amb: float = 1e-4,
-                max_steps: int = 16,
+                max_steps: int = 16, finetune_lips_active: bool = False,
                 ray_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The per-step scalar loss without LPIPS and the jitter regulariser.
+    The lips finetune (finetune_lips_active) drops the uncertainty terms.
 
     ray_weight [N]: the compact path's per-ray loss weights (0 for budget
     overflow rays, n_active/n_slotted for slotted active rays, 1
@@ -45,7 +46,7 @@ def head_losses(outputs: Dict, pred_rgb: torch.Tensor, gt_rgb: torch.Tensor,
             return torch.sum(x * v) / denom
 
     loss = torch.mean((pred_rgb - gt_rgb) ** 2, dim=-1)             # [N]
-    if unc_loss:
+    if unc_loss and not finetune_lips_active:
         alpha = 0.2
         uncertainty = outputs["uncertainty"]
         unc_weight = torch.softmax(uncertainty, dim=0) * N
@@ -69,3 +70,14 @@ def head_losses(outputs: Dict, pred_rgb: torch.Tensor, gt_rgb: torch.Tensor,
         total = total + lam * vmean(
             amb_eye * outputs["ambient_aud"].detach() * face)
     return total
+
+
+def torso_losses(pred_rgb: torch.Tensor, gt_rgb: torch.Tensor,
+                 torso_alpha: torch.Tensor,
+                 anchor_points: torch.Tensor) -> torch.Tensor:
+    """The torso stage's loss: MSE of the composite [N, 3] against the
+    target, the anchors' homogeneous coordinate held at 1, and the
+    alphas' [N, 1] binary entropy at 1e-4."""
+    loss = torch.mean((pred_rgb - gt_rgb) ** 2)
+    loss = loss + torch.mean((1.0 - anchor_points[:, 3]) ** 2)
+    return loss + 1e-4 * entropy_loss(torso_alpha)

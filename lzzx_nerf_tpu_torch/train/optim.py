@@ -1,14 +1,17 @@
-"""The head optimizer (port of lzzx_nerf_tpu/train/optim.py): AdamW per
-parameter group with the reference's hyperparameters, an exponential
+"""The training optimizer (port of lzzx_nerf_tpu/train/optim.py): AdamW
+per parameter group with the reference's hyperparameters, an exponential
 learning-rate schedule, and optax.apply_if_finite's skip of non-finite
-steps.
+steps. The head, the lips finetune (finetune_lips: decay 0.05 per `iters`)
+and the torso stage (its torso_encoder_l* tables are grid, the rest net)
+each run one.
 
 Groups (param_label_fn, the JAX package's rule):
   grid  (triplane tables):  lr,          weight decay 0.01
   att   (audio_att_net):    lr_net * 5,  weight decay 1e-4
   net   (everything else):  lr_net,      weight decay 0
 All groups: b1 = 0, b2 = 0.99, eps 1e-8, decay decoupled as in
-optax.adamw, lr(count) = base * 0.5 ** (count / iters), unclamped.
+optax.adamw, lr(count) = base * rate ** (count / iters), unclamped, with
+rate 0.5 (0.05 for the lips finetune).
 
 The update runs in optax's order of operations: mu = g (b1 = 0 leaves no
 first moment to keep), nu = b2 nu +
@@ -24,7 +27,7 @@ the one thing this optimizer adds to optax's behaviour."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Tuple
 
 import torch
 
@@ -57,10 +60,11 @@ class HeadOptimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  lr: float = 1e-2, lr_net: float = 1e-3,
-                 iters: int = 200_000, max_consecutive_errors: int = 100,
+                 iters: int = 200_000, finetune_lips: bool = False,
+                 max_consecutive_errors: int = 100,
                  log: Callable[[str], None] = print):
         self.iters = iters
-        self.decay_rate = lr_decay_rate(False)
+        self.decay_rate = lr_decay_rate(finetune_lips)
         self.max_consecutive_errors = max_consecutive_errors
         self.log = log
         hyper = {"grid": (lr, 0.01), "att": (lr_net * 5, 1e-4),
@@ -167,3 +171,16 @@ class HeadOptimizer:
                 "total_notfinite": self.total_notfinite,
                 "nu": {n: nu for g in self.groups.values()
                        for n, nu in zip(g["names"], g["nu"])}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Mapping) -> None:
+        """Restore the counters and second moments of state_dict() (values
+        may be numpy arrays or tensors; each moment keeps its device)."""
+        for key in ("count", "notfinite_count", "total_notfinite"):
+            getattr(self, key).fill_(int(sd[key]))
+        missing = set(self.names) - set(sd["nu"])
+        if missing:
+            raise KeyError(f"no second moment for {sorted(missing)}")
+        for g in self.groups.values():
+            for n, nu in zip(g["names"], g["nu"]):
+                nu.copy_(torch.as_tensor(sd["nu"][n]))

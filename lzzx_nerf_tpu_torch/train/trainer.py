@@ -1,15 +1,19 @@
-"""The head training step and the eval render (port of
+"""The training steps and the eval render (port of
 lzzx_nerf_tpu/train/trainer.py: TrainState, make_train_step,
-make_eval_step).
+make_eval_step, make_torso_train_step).
 
-One step: random rays of one frame, the audio code, the field through the
-full-path march (render_rays) or the window-compacted one
-(render_rays_train_compact), the head loss stack, the every-16-steps
-jitter regulariser, backward, the optimizer (non-finite steps skipped on
-the device) and the periodic EMA. The step's random draws come from an
-explicit generator on the step's device, or are passed in (`draws`) — the
-parity tests pass the JAX package's threefry draws. A step reads nothing
-back to the host: its metrics are device tensors.
+A head step: random rays of one frame (or, for the lips finetune, the
+fixed lips_pad² crop at the frame's lips rect), the audio code, the field
+through the full-path march (render_rays) or the window-compacted one
+(render_rays_train_compact; never under the lips finetune), the head loss
+stack, LPIPS on the lips crop, the every-16-steps jitter regulariser (off
+under the lips finetune), backward, the optimizer (non-finite steps
+skipped on the device) and the periodic EMA. A torso step: random pixels,
+the torso pass over the frame's background (run_torso), the torso loss,
+the optimizer and the EMA; the head is not touched. A step's random draws
+come from an explicit generator on the step's device, or are passed in
+(`draws`) — the parity tests pass the JAX package's threefry draws. A step
+reads nothing back to the host: its metrics are device tensors.
 """
 
 from __future__ import annotations
@@ -21,26 +25,50 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.nerf import NeRFField
-from ..render.renderer import render_rays, render_rays_train_compact
+from torch import nn
+
+from ..models.nerf import NeRFField, TorsoField
+from ..render.renderer import (render_rays, render_rays_train_compact,
+                               run_torso)
 from ..render.state import OccupancyState, RenderSettings
-from ..utils.rays import get_rays
-from .losses import head_losses
-from .optim import HeadOptimizer
+from ..utils.rays import get_bg_coords, get_rays
+from . import lpips as lpips_mod
+from .losses import head_losses, torso_losses
+from .optim import HeadOptimizer, lr_decay_rate
 
 
 @dataclass
 class TrainState:
-    field: NeRFField
+    """A stage's module (the head field or the torso), its optimizer, the
+    parameters' EMA and the step count."""
+
+    field: nn.Module
     opt: HeadOptimizer
     ema: Dict[str, torch.Tensor]
     step: int = 0
 
     @classmethod
-    def create(cls, field: NeRFField, opt: HeadOptimizer) -> "TrainState":
+    def create(cls, field: nn.Module, opt: HeadOptimizer) -> "TrainState":
         return cls(field=field, opt=opt,
                    ema={n: p.detach().clone()
                         for n, p in field.named_parameters()})
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        for n, p in self.field.named_parameters():
+            e = self.ema[n]
+            e.copy_(decay * e + (1 - decay) * p)
+
+
+def _draw(dev, draws: Mapping, gen: Optional[torch.Generator], name: str,
+          make):
+    """draws[name] on `dev` when given, else make(gen)."""
+    got = draws.get(name)
+    if got is not None:
+        return got.to(dev)
+    if gen is None:
+        raise ValueError(f"the step needs a generator for {name!r}")
+    return make(gen)
 
 
 def _masked_mse(a, b, w):
@@ -89,22 +117,26 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                     ind_dim: int = 4, ema_decay: float = 0.95,
                     ema_interval: int = 1000,
                     update_extra_interval: int = 16,
-                    finetune_lips: bool = False, train_camera: bool = False,
-                    data_parallel: bool = False, train_budget: int = 0,
-                    train_stage_split: int = 0):
+                    lpips_params: Optional[Mapping[str, torch.Tensor]] = None,
+                    finetune_lips: bool = False, lips_pad: int = 32,
+                    train_camera: bool = False, data_parallel: bool = False,
+                    train_budget: int = 0, train_stage_split: int = 0):
     """Returns step(state, occ, batch, generator=None, draws=None) ->
-    metrics. train_budget > 0 selects the compacted step.
+    metrics. train_budget > 0 selects the compacted step (not under the
+    lips finetune). finetune_lips: rays on the lips_pad² crop at
+    batch["rect_origin"], no uncertainty terms, no regulariser, and
+    0.01 x LPIPS (lpips_params, on the card's device) of the crop.
 
     batch: image [H, W, 3], bg_color [H, W, 3], face_mask [H, W] bool,
-    pose [4, 4], auds [8, 16, C], eye [1], index (int), on the step's
-    device. draws: tensors that replace the generator's draws (any
-    subset; the rest come from the generator), uniform in [0, 1) unless
-    said otherwise: "inds" [N] int pixel indices in [0, H*W); "noise" [N],
-    the march lattice jitter; "eye_jitter" (eye's shape), the blink jitter
-    (u - 0.5) / 10; "reg_delta" [M, 3] over the step's M samples, the
-    regulariser's jitter (u * 2 - 1) * 1e-3."""
-    later = {"finetune_lips": finetune_lips, "patch_size > 1":
-             patch_size > 1, "train_camera": train_camera,
+    pose [4, 4], auds [8, 16, C], eye [1], index (int), and for the lips
+    finetune rect_origin [2] int (row, col), on the step's device. draws:
+    tensors that replace the generator's draws (any subset; the rest come
+    from the generator), uniform in [0, 1) unless said otherwise: "inds"
+    [N] int pixel indices in [0, H*W) (not drawn under the lips finetune);
+    "noise" [N], the march lattice jitter; "eye_jitter" (eye's shape), the
+    blink jitter (u - 0.5) / 10; "reg_delta" [M, 3] over the step's M
+    samples, the regulariser's jitter (u * 2 - 1) * 1e-3."""
+    later = {"patch_size > 1": patch_size > 1, "train_camera": train_camera,
              "data_parallel": data_parallel,
              "train_stage_split": train_stage_split > 0}
     for what, on in later.items():
@@ -115,14 +147,10 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
     dev = next(field.parameters()).device
     aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
     S = settings.max_steps
-
-    def draw(draws, gen, name, make):
-        got = draws.get(name)
-        if got is not None:
-            return got.to(dev)
-        if gen is None:
-            raise ValueError(f"the step needs a generator for {name!r}")
-        return make(gen)
+    use_compact = train_budget > 0 and not finetune_lips
+    use_lpips = finetune_lips and lpips_params is not None
+    lips_ar = torch.arange(lips_pad, device=dev)
+    decay_rate = np.float32(lr_decay_rate(finetune_lips))
 
     def step_fn(state: TrainState, occ: OccupancyState, batch: Mapping,
                 generator: Optional[torch.Generator] = None,
@@ -130,22 +158,31 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         draws = draws or {}
         step = state.step
         step_factor = min(_f32_ratio(step, iters), 1.0)
-        inds = draw(draws, generator, "inds", lambda g: torch.randint(
-            0, H * W, (min(num_rays, H * W),), generator=g, device=dev))
+        if finetune_lips:
+            # the fixed-size crop at the lips rect's origin (row, col)
+            o = batch["rect_origin"].to(dev)
+            inds = ((o[0] + lips_ar)[:, None] * W
+                    + (o[1] + lips_ar)[None, :]).reshape(-1)
+        else:
+            inds = _draw(dev, draws, generator, "inds",
+                         lambda g: torch.randint(
+                             0, H * W, (min(num_rays, H * W),), generator=g,
+                             device=dev))
         rays = get_rays(batch["pose"][None], intrinsics, H, W, inds=inds)
         rays_o, rays_d = rays["rays_o"][0], rays["rays_d"][0]
         gt = batch["image"].reshape(-1, 3).index_select(0, inds)
         face = batch["face_mask"].reshape(-1).index_select(0, inds)
         bg = batch["bg_color"].reshape(-1, 3).index_select(0, inds)
         N = gt.shape[0]
-        noise = draw(draws, generator, "noise",
-                     lambda g: torch.rand((N,), generator=g, device=dev))
+        noise = _draw(dev, draws, generator, "noise",
+                      lambda g: torch.rand((N,), generator=g, device=dev))
 
         state.opt.zero_grad()
         enc_a = field.encode_audio_train(batch["auds"])
         c = field.individual_codes[batch["index"]] if ind_dim > 0 else None
-        u = draw(draws, generator, "eye_jitter", lambda g: torch.rand(
-            batch["eye"].shape, generator=g, device=dev))
+        u = _draw(dev, draws, generator, "eye_jitter",
+                  lambda g: torch.rand(batch["eye"].shape, generator=g,
+                                       device=dev))
         eye = batch["eye"] + (u - 0.5) / 10
         tables = field.bake_train_tables()
 
@@ -154,7 +191,7 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                          compute_uncertainty=unc_loss, packed=tables)
 
         ray_weight = None
-        if train_budget > 0:
+        if use_compact:
             res = render_rays_train_compact(
                 field_fn, settings, occ, rays_o, rays_d, bg, train_budget,
                 noise=noise, aabb=aabb)
@@ -165,12 +202,19 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         loss = head_losses(res, res["image"], gt, face, step_factor,
                            unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
                            amb_eye_loss=amb_eye_loss, lambda_amb=lambda_amb,
-                           max_steps=S, ray_weight=ray_weight)
+                           max_steps=S, finetune_lips_active=finetune_lips,
+                           ray_weight=ray_weight)
+        if use_lpips:
+            shape = (1, lips_pad, lips_pad, 3)
+            loss = loss + 0.01 * torch.mean(lpips_mod.lpips(
+                lpips_params, res["image"].reshape(shape) * 2 - 1,
+                gt.reshape(shape) * 2 - 1))
 
-        if step % update_extra_interval == 0:
+        if not finetune_lips and step % update_extra_interval == 0:
             pts, d_s, mask = res["rays"]
-            u = draw(draws, generator, "reg_delta", lambda g: torch.rand(
-                pts.shape, generator=g, device=dev))
+            u = _draw(dev, draws, generator, "reg_delta",
+                      lambda g: torch.rand(pts.shape, generator=g,
+                                           device=dev))
             reg = jitter_regulariser(
                 field, pts, d_s, mask, enc_a, c, eye, (u * 2 - 1) * 1e-3,
                 tables, unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
@@ -183,17 +227,14 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         if new_step % ema_interval == 0:
             # decay 0.95 once per ema_interval steps is the reference's own
             # schedule (torch-ema gated on the step), not a bug
-            with torch.no_grad():
-                for n, p in field.named_parameters():
-                    e = state.ema[n]
-                    e.copy_(ema_decay * e + (1 - ema_decay) * p)
+            state.update_ema(ema_decay)
 
         with torch.no_grad():
             metrics = {
                 "loss": loss.detach(),
                 "mse": torch.mean((res["image"] - gt) ** 2),
                 "weights_sum": torch.mean(res["weights_sum"]),
-                "lr_factor": float(np.float32(0.5) ** np.float32(
+                "lr_factor": float(decay_rate ** np.float32(
                     _f32_ratio(new_step, iters))),
                 "grad_notfinite": state.opt.total_notfinite,
             }
@@ -256,3 +297,44 @@ def make_eval_step(field: NeRFField, settings: RenderSettings, *, H: int,
                 "loss": torch.mean((res["image"] - gt) ** 2)}
 
     return eval_fn
+
+
+def make_torso_train_step(torso: TorsoField, settings: RenderSettings, *,
+                          H: int, W: int, num_rays: int,
+                          ind_dim_torso: int = 8, ema_decay: float = 0.95,
+                          ema_interval: int = 1000):
+    """Returns step(state, occ, batch, generator=None, draws=None) ->
+    metrics for the torso stage (the head is frozen: it is not part of the
+    step). num_rays uniform pixels; the target is the frame's
+    torso-over-background composite batch["bg_torso_color"], the torso
+    composited over batch["bg_color"]. draws["inds"] [num_rays] int
+    replaces the generator's pixels."""
+    dev = next(torso.parameters()).device
+    bg_coords_full = get_bg_coords(H, W, device=dev)[0]
+
+    def step_fn(state: TrainState, occ: OccupancyState, batch: Mapping,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Mapping] = None) -> Dict:
+        inds = _draw(dev, draws or {}, generator, "inds",
+                     lambda g: torch.randint(0, H * W, (num_rays,),
+                                             generator=g, device=dev))
+        bg_coords = bg_coords_full.index_select(0, inds)
+        gt = batch["bg_torso_color"].reshape(-1, 3).index_select(0, inds)
+        bg = batch["bg_color"].reshape(-1, 3).index_select(0, inds)
+
+        state.opt.zero_grad()
+        c = (torso.individual_codes_torso[batch["index"]]
+             if ind_dim_torso > 0 else None)
+        res = run_torso(torso.train_forward, settings, occ, bg_coords,
+                        batch["pose"], c, bg)
+        loss = torso_losses(res["torso_color"], gt, res["torso_alpha"],
+                            torso.anchor_points)
+        loss.backward()
+        state.opt.step()
+        state.step = new_step = state.step + 1
+        if new_step % ema_interval == 0:
+            state.update_ema(ema_decay)
+        return {"loss": loss.detach(),
+                "grad_notfinite": state.opt.total_notfinite}
+
+    return step_fn

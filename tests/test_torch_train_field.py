@@ -295,15 +295,17 @@ def test_params_to_jax_inverts_params_from_jax(jworld):
 
 
 def test_entry_point_refuses_without_gpu_and_unported_stages(tmp_path):
+    """Without a GPU the default device raises, whichever stages run (the
+    lips and torso stages are ported now: nothing else refuses)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device runs")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        train_production.main(["--workspace", str(tmp_path), "--res", "32",
-                               "--grid", "32", "--head-iters", "1"])
-    for flag in ("--lips-iters", "--torso-iters"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            train_production.main(["--device", "cpu", flag, "1",
-                                   "--workspace", str(tmp_path)])
+    for stages in (["--lips-iters", "0", "--torso-iters", "0"],
+                   ["--lips-iters", "1", "--torso-iters", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_production.main(["--workspace", str(tmp_path), "--res",
+                                   "32", "--grid", "32", "--head-iters", "1",
+                                   *stages])
+    assert not os.listdir(tmp_path)
 
 
 def test_entry_point_tiny_cpu_run_writes_a_jax_loadable_head(jworld,
@@ -317,11 +319,14 @@ def test_entry_point_tiny_cpu_run_writes_a_jax_loadable_head(jworld,
         "--device", "cpu", "--res", "32", "--grid", "32", "--frames", "4",
         "--num-rays", "2048", "--head-iters", "12", "--warmup", "6",
         "--eval-every", "12", "--eval-res", "24", "--log-every", "6",
-        "--ckpt-every", "12", "--workspace", str(ws)])
+        "--ckpt-every", "12", "--lips-iters", "0", "--torso-iters", "0",
+        "--workspace", str(ws)])
     assert rc == 0
     lines = [json.loads(x) for x in open(ws / "metrics.jsonl")]
     events = [x["event"] for x in lines]
-    assert events == ["start", "log", "log", "eval", "stage_done"]
+    # the head stage, then the recipe's end with no lips and no torso step
+    assert events == ["start", "log", "log", "eval", "stage_done", "start",
+                      "stage_done", "eval_final", "done"]
     assert lines[0]["train_budget"] == 1024
     assert lines[1]["n_active"] == 0 and lines[2]["n_active"] > 0
     assert all(x["grad_notfinite"] == 0 for x in lines if "loss" in x)
