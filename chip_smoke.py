@@ -69,7 +69,29 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      on the card serves it: one eager chunk with every kernel launch held
      to its plain version, then the chunk captured, launch counts set to
      0 just before and read just after (both kernels must launch), its
-     frames byte-equal to the eager ones.
+     frames byte-equal to the eager ones;
+ 15. live: tools/identity.py writes the trained state as a 512² dataset
+     identity (its 32 poses, intrinsics, landmarks, blinks, seeded
+     29-wide features, bc.jpg when the card has an image codec, else a
+     white background) and a workspace; the poses the provider loads must
+     equal the state's. An InferenceSession (the Config's defaults) loads
+     it and settles its plan on LIVE_FRAMES seeded frames; then run()
+     renders them into a RawFileSink and run_live renders the same
+     features in irregular drips, byte-equal, both kernels launching in
+     each (counts set to 0 just before, read just after); one eager chunk
+     holds every kernel launch to its plain version; frames/s of run()
+     with the sink; the frames after the load that streamed over the
+     Config's starting plan; the audio-to-video latency of run_live over
+     LATENCY_FRAMES seeded frames (from the segment that completes frame
+     i's right context to frame i in the sink), p50 and p95 at chunk 8
+     and chunk 1, fed at the browser page's cadence (a post every 1.024
+     s, 25-26 frames) and in DRIPS paced at 25 frames/s;
+ 16. webapi: serve() on 127.0.0.1:0 over the same identity with a raw
+     sink: model_select, an .npy upload and GET /api/inference?wait=1
+     (after the server's session settles its plan) must write [live]'s
+     offline bytes, and a live /api/audio_chunk ... /api/audio_end stream
+     of .npy segments the same bytes; both kernels launch in each; the
+     wall time of the 64 frames through HTTP.
 Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
 line.
 """
@@ -80,6 +102,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +139,20 @@ TRAIN_REG_RTOL = 1e-5
 LIPS_STEPS = 60
 TORSO_STEPS = 160
 # the whole recipe through its entry point, at a reduced depth
+# frames of the [live] and [webapi] phases (seeded 29-wide features), the
+# irregular drip sizes of their live streams, the live feed's rate
+LIVE_FRAMES = 64
+DRIPS = (1, 4, 0, 2, 3, 5, 1, 2)
+FEED_FPS = 25.0
+# the latency check: a longer seeded stream, fed at two cadences. "drips":
+# DRIPS, each segment due when its last frame's speech has been spoken at
+# FEED_FPS. "player": the browser page's live mode (static/player.html,
+# maybeFlushLive) posts a WAV chunk once 16,000 samples are buffered from
+# 4,096-sample callbacks, i.e. every PLAYER_POST samples (1.024 s at 16
+# kHz); the server's HubertStreamer turns each post into the whole frames
+# of 640 samples it completes (25 or 26)
+LATENCY_FRAMES = 512
+PLAYER_POST = 16384
 RECIPE_ARGS = ["--res", "128", "--grid", "64", "--frames", "8",
                "--num-rays", "8192", "--head-iters", "200", "--warmup",
                "100", "--lips-iters", "20", "--lips-pad", "64",
@@ -762,6 +799,351 @@ def recipe_phase(dev) -> tuple:
     return t_ok and s_all, lines
 
 
+def _drips(feats, sizes=DRIPS):
+    """feats in segments of the sizes in `sizes`, cycled (0: an empty one)."""
+    at, k = 0, 0
+    while at < len(feats):
+        n = sizes[k % len(sizes)]
+        k += 1
+        yield feats[at:at + n]
+        at += n
+
+
+def feed_schedule(n: int, cadence: str) -> list:
+    """[(start, end, due seconds)] segments of an n-frame live feed at
+    `cadence` ("drips" or "player", see LATENCY_FRAMES); a segment is due
+    when the speech it carries has been spoken."""
+    out, at, k, rem = [], 0, 0, 0
+    while at < n:
+        if cadence == "drips":
+            m = DRIPS[k % len(DRIPS)]
+            due = (at + m) / FEED_FPS
+        else:
+            # HubertStreamer's lattice: whole 640-sample frames past the
+            # CNN edge of 80 samples, the rest carried to the next post
+            buf = rem + PLAYER_POST
+            m = (buf - 80) // 640
+            rem = buf - 640 * m
+            due = (k + 1) * PLAYER_POST / 16000
+        m = min(m, n - at)
+        out.append((at, at + m, due))
+        at += m
+        k += 1
+    return out
+
+
+def paced_latency(sess, feats, chunk: int, cadence: str) -> dict:
+    """run_live over feats fed at `cadence` (feed_schedule), at `chunk`
+    frames a chunk: each frame's latency from the segment that completes
+    its right context (feature i + 3, or the end of the stream) to its
+    arrival in the sink, in ms; the rebuilds during the stream; and
+    frames/s of an unpaced run() of the same frames at that chunk."""
+    import numpy as np
+
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink
+
+    sess.cfg = sess.cfg.replace(infer_chunk=chunk)
+    # capture the chunk's graph before the timed stream
+    sess.set_audio_features(feats[:chunk])
+    sess.run(NullSink())
+    n = len(feats)
+    fed, shown, end = {}, {}, []
+    rebuilds = sess.rebuilds
+
+    def stream():
+        t0 = time.perf_counter()
+        for a, b, due in feed_schedule(n, cadence):
+            time.sleep(max(0.0, t0 + due - time.perf_counter()))
+            now = time.perf_counter()
+            for i in range(a, b):
+                fed[i] = now
+            yield feats[a:b]
+        end.append(time.perf_counter())
+
+    sess.run_live(stream(), NullSink(),
+                  on_frame=lambda i, b: shown.__setitem__(
+                      i, time.perf_counter()))
+    lat = np.array([1e3 * (shown[i] - (fed[i + 3] if i + 3 < n
+                                       else end[0])) for i in range(n)])
+    rebuilds = sess.rebuilds - rebuilds
+    # the same frames unpaced, for the rate this chunk size gives
+    sess.set_audio_features(feats)
+    _, dt = sess.run(NullSink())
+    return {"p50": float(np.percentile(lat, 50)),
+            "p95": float(np.percentile(lat, 95)),
+            "max": float(lat.max()), "frames": len(shown),
+            "rebuilds": rebuilds, "fps": n / dt}
+
+
+def torch_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def live_phase(dev, root: str, smi: str, res=None, n_poses=None,
+               frames: int = LIVE_FRAMES,
+               latency_frames: int = LATENCY_FRAMES) -> tuple:
+    """[live]: the identity (the state's poses at its resolution, or
+    n_poses at `res`), the settled plan, run() and run_live byte for byte
+    over `frames` frames, both kernels held and launched, frames/s, latency
+    over `latency_frames` frames -> (ok, report lines, {"ident", "cfg",
+    "feats", "offline"} for [webapi])."""
+    import numpy as np
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.data.provider import NeRFDataset
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink, RawFileSink
+    from lzzx_nerf_tpu_torch.tools.identity import write_identity
+
+    lines = []
+    t0 = time.perf_counter()
+    ident = write_identity(root, model="identity", res=res,
+                           n_poses=n_poses, seed=0)
+    cfg = Config(asr_model="deepspeech", bg_img=ident["bg_img"])
+    raw_poses = NeRFDataset(cfg.replace(path=ident["data"])).poses
+    poses_ok = bool(np.array_equal(raw_poses, ident["poses"]))
+    sess = InferenceSession(cfg, device=dev,
+                            log=lambda m: lines.append(f"[live] {m}"))
+    sess.load_model(ident["data"], ident["workspace"])
+    t_load = time.perf_counter() - t0
+    feats = np.random.default_rng(7).standard_normal(
+        (frames, 16, 29)).astype(np.float32)
+    # the escapes settle the Config's plan on these frames
+    settled = False
+    for _ in range(4):
+        r0 = sess.rebuilds
+        sess.set_audio_features(feats)
+        sess.run(NullSink())
+        if sess.rebuilds == r0 and not sess.rebuild_pending():
+            settled = True
+            break
+    # the frames that streamed over the Config's starting plan (an
+    # escape's chunk renders as planned; the rebuild takes the next one)
+    over = {m.groups() for m in (
+        re.search(r"\[WARN\] frames (\d+)\.\.(\d+)", ln) for ln in lines)
+        if m}
+    lines.append(
+        f"[live] identity {ident['data']}: {len(ident['poses'])} poses at "
+        f"{sess.H}², background "
+        f"{'bc.jpg' if ident['codec'] else 'white (no image codec)'}, "
+        f"provider poses equal the state's {poses_ok}, torso "
+        f"{sess.torso is not None}; load {t_load:.1f} s; "
+        f"{sum(int(b) - int(a) + 1 for a, b in over)} frame(s) after the "
+        f"load streamed over the starting plan; plan after "
+        f"{sess.rebuilds} rebuild(s), settled {settled}: K2={sess.k2} "
+        f"bucket={sess.bucket} budget={sess.budget} long="
+        f"{sess.long_budget} eval={sess.eval_budget} stage2="
+        f"{sess.stage2_budget} chunk={sess.chunk} [{smi}]")
+
+    # 1. run() into a raw sink; 2. run_live on the same features
+    rebuilds = sess.rebuilds
+    off_path = os.path.join(root, "offline.raw")
+    sess.set_audio_features(feats)
+    kernels.reset_launches()
+    n, dt = sess.run(RawFileSink(off_path))
+    torch_sync(dev)
+    l_run = dict(kernels.launches)
+    with open(off_path, "rb") as f:
+        offline = f.read()
+    live_path = os.path.join(root, "live.raw")
+    kernels.reset_launches()
+    n_live, dt_live = sess.run_live(_drips(feats), RawFileSink(live_path))
+    torch_sync(dev)
+    l_live = dict(kernels.launches)
+    with open(live_path, "rb") as f:
+        same = f.read() == offline
+    frame_bytes = sess.H * sess.W * 3
+    launched = all(v > 0 for v in l_run.values()) and all(
+        v > 0 for v in l_live.values())
+    r_ok = (n == n_live == frames and same and launched and poses_ok
+            and len(offline) == frames * frame_bytes and settled
+            and sess.rebuilds == rebuilds)
+    lines.append(
+        f"[live] run() {n} frames into a RawFileSink (rgb24, "
+        f"{len(offline):,} bytes): {n / dt:.2f} frames/s ({dt:.3f} s), "
+        f"launches {l_run}; run_live in drips {DRIPS}: {n_live} frames, "
+        f"byte-equal {same}, launches {l_live} [{smi}] "
+        f"{'OK' if r_ok else 'FAIL'}")
+
+    # 3. one eager chunk, every kernel launch held to its plain version;
+    # its frames are the offline run's first chunk
+    field_checks, select_checks = [], []
+    eager = {}
+    sess.graph = False
+    with kernels_held(field_checks, select_checks):
+        sess.set_audio_features(feats[:sess.chunk])
+        sess.run(on_frame=lambda i, b: eager.__setitem__(i, b))
+    sess.graph = None
+    e_same = all(eager[i].tobytes() == offline[i * frame_bytes:
+                                               (i + 1) * frame_bytes]
+                 for i in range(sess.chunk))
+    f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+    s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
+    h_ok = f_ok and s_ok and e_same
+    lines.append(
+        f"[live] eager chunk of {sess.chunk}: field within FIELD_TOL at "
+        f"{sum(e['ok'] for _, e in field_checks)} of {len(field_checks)} "
+        f"launches (N {sorted({m for m, _ in field_checks})}, max share of "
+        f"tol colour "
+        f"{max((e['color_share'] for _, e in field_checks), default=0):.3f}"
+        f", sigma "
+        f"{max((e['sigma_share'] for _, e in field_checks), default=0):.3f}"
+        f"), select equal at {sum(e for _, e, _ in select_checks)} of "
+        f"{len(select_checks)} (G {sorted({g for g, _, _ in select_checks})}"
+        f"); frames byte-equal to the captured run's {e_same} "
+        f"{'OK' if h_ok else 'FAIL'}")
+
+    # 4. audio-to-video latency over a longer stream, at chunk 8 and 1,
+    # fed at both cadences; the plan settles on its features first
+    long_feats = np.random.default_rng(8).standard_normal(
+        (latency_frames, 16, 29)).astype(np.float32)
+    l_settled = False
+    for _ in range(4):
+        r0 = sess.rebuilds
+        sess.set_audio_features(long_feats)
+        sess.run(NullSink())
+        if sess.rebuilds == r0 and not sess.rebuild_pending():
+            l_settled = True
+            break
+    l_ok = l_settled
+    for cadence in ("player", "drips"):
+        sched = feed_schedule(latency_frames, cadence)
+        lat = {c: paced_latency(sess, long_feats, c, cadence)
+               for c in (8, 1)}
+        l_ok = l_ok and all(v["frames"] == latency_frames
+                            for v in lat.values())
+        sizes = sorted({b - a for a, b, _ in sched})
+        lines.append(
+            f"[live] audio-to-video latency, {cadence} cadence ("
+            f"{len(sched)} segments of {sizes[0]}-{sizes[-1]} frames, the "
+            f"last due at {sched[-1][2]:.3f} s): " + "; ".join(
+                f"chunk {c}: p50 {v['p50']:.1f} ms, p95 {v['p95']:.1f} ms, "
+                f"max {v['max']:.1f} ms over {v['frames']} frames, "
+                f"{v['rebuilds']} rebuild(s) in the stream (run() unpaced "
+                f"{v['fps']:.2f} frames/s)"
+                for c, v in lat.items()) + f" [{smi}] "
+            f"{'OK' if l_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    sess.cfg = sess.cfg.replace(infer_chunk=cfg.infer_chunk)
+    ok = r_ok and h_ok and l_ok
+    del sess
+    return ok, lines, {"ident": ident, "cfg": cfg, "feats": feats,
+                       "offline": offline}
+
+
+def webapi_phase(dev, root: str, live: dict, smi: str) -> tuple:
+    """[webapi]: serve() over [live]'s identity with a raw sink; an .npy
+    upload with GET /api/inference?wait=1 and a live /api/audio_chunk ...
+    /api/audio_end stream must each write [live]'s offline bytes, both
+    kernels launching -> (ok, report lines)."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.serving.webapi import serve
+
+    lines = []
+    t0 = time.perf_counter()
+    raw = os.path.join(root, "webapi.raw")
+    httpd = serve(live["cfg"], host="127.0.0.1", port=0, data_root=root,
+                  trial_root=root, sink_kind="raw", out_path=raw,
+                  device=dev)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(route, body=None, ctype="application/json"):
+        req = urllib.request.Request(base + route, body,
+                                     {"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    def npy(a):
+        bio = io.BytesIO()
+        np.save(bio, a)
+        return bio.getvalue()
+
+    def raw_bytes():
+        with open(raw, "rb") as f:
+            return f.read()
+
+    try:
+        feats, offline = live["feats"], live["offline"]
+        model = os.path.basename(live["ident"]["data"])
+        r = call("/api/model_select", json.dumps({"model": model}).encode())
+        sess = httpd.state.session
+        path = os.path.join(root, model, "utterance.npy")
+        np.save(path, feats)
+        # an upload resets the smooth-lips carry (each inference after it
+        # continues from the last): upload before every run
+        def upload():
+            return call("/api/audio_upload", json.dumps(
+                {"aud_path": path}).encode())
+
+        # the server's session settles its plan on the utterance
+        settled = False
+        for _ in range(4):
+            r0 = sess.rebuilds
+            upload()
+            call("/api/inference?wait=1")
+            if sess.rebuilds == r0 and not sess.rebuild_pending():
+                settled = True
+                break
+        up = upload()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        inf = call("/api/inference?wait=1")
+        wall = time.perf_counter() - t1
+        l_up = dict(kernels.launches)
+        up_same = raw_bytes() == offline
+        os.remove(raw)
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        for seg in _drips(feats):
+            call("/api/audio_chunk", npy(seg), "application/octet-stream")
+        call("/api/audio_end", b"", "application/octet-stream")
+        while True:
+            st = call("/api/status")
+            if not st["busy"]:
+                break
+            time.sleep(0.02)
+        live_wall = time.perf_counter() - t1
+        l_live = dict(kernels.launches)
+        live_same = raw_bytes() == offline
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    launched = all(v > 0 for v in l_up.values()) and all(
+        v > 0 for v in l_live.values())
+    n = len(feats)
+    ok = (r.get("model") == model and up.get("aud_frames") == n
+          and inf.get("done") and inf.get("frames_done") == n
+          and inf.get("error") is None and st["error"] is None
+          and st["frames_done"] == n and up_same and live_same
+          and launched and settled and not th.is_alive())
+    lines.append(
+        f"[webapi] model_select {r.get('model')!r} ({r.get('frames')} "
+        f"frames), .npy upload {up.get('aud_frames')} frames, settled "
+        f"{settled} after {sess.rebuilds} rebuild(s); GET "
+        f"/api/inference?wait=1: {inf.get('frames_done')} frames in "
+        f"{wall:.3f} s through HTTP (the handler polls every 0.2 s; "
+        f"{n / wall:.2f} frames/s), raw bytes equal [live]'s "
+        f"{up_same}, launches {l_up}; live /api/audio_chunk x "
+        f"{sum(1 for _ in _drips(feats))} + /api/audio_end: "
+        f"{st['frames_done']} frames, {live_wall:.3f} s to idle, raw bytes "
+        f"equal {live_same}, launches {l_live} [{smi}] "
+        f"{'OK' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    return ok, lines
+
+
 def _syncs(fn) -> list:
     """The host synchronisations fn makes (torch's sync debug mode), as
     the file:line of the Python call that made each."""
@@ -1295,6 +1677,26 @@ def main() -> int:
     ok &= r_ok
     log(f"[recipe] {'OK' if r_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the serving stack a user runs: dataset identity, run / run_live
+    # into a sink, and the HTTP API
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        v_ok, lines, live = live_phase(dev, root, smi)
+        for line in lines:
+            log(line)
+        ok &= v_ok
+        log(f"[live] {'OK' if v_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        w_ok, lines = webapi_phase(dev, root, live, smi)
+        for line in lines:
+            log(line)
+        ok &= w_ok
+        log(f"[webapi] {'OK' if w_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
     # per frame: both field launches (stage 1, stage 2) and both select
     # launches (short, long bucket) of the first frame, summed

@@ -449,27 +449,29 @@ def window_candidates_for_scene(z_lo, z_hi, dt: float, min_dz: float = 0.8,
 
 
 def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
-                       W: int, log=print) -> int:
-    """The serving march plan of the group-2 block march: K2 (the
-    geometric bound, tightened to the trajectory-measured count) after the
-    drift-envelope check. The port has the group-2 block march only, so a
-    geometry outside its ±2 envelope raises instead of stepping down to
-    the per-ray march."""
+                       W: int, k2_override: int = 0, log=print) -> int:
+    """The serving march plan of the group-2 block march: K2 (k2_override
+    when nonzero, else the geometric bound tightened to the
+    trajectory-measured count) after the drift-envelope check. The port
+    has the group-2 block march only, so a geometry outside its ±2
+    envelope raises instead of stepping down to the per-ray march."""
     from ..utils.rays import min_corner_dz
 
     dz = min_corner_dz(poses, intrinsics, H, W)
-    k2 = window_candidates_for_scene(
-        z_lo.detach().cpu().numpy(), z_hi.detach().cpu().numpy(),
-        settings.dt, min_dz=dz)
-    k2m = measured_window_candidates(settings, z_lo, z_hi, poses,
-                                     intrinsics, H, W)
-    if k2m < k2:
-        log(f"[INFO] trajectory-measured window candidates: "
-            f"K2={k2m} (geometric bound {k2})")
-        k2 = k2m
-    else:
-        log(f"[INFO] adaptive window candidates: K2={k2} "
-            f"(measured {k2m} >= geometric bound)")
+    k2 = k2_override
+    if not k2:
+        k2 = window_candidates_for_scene(
+            z_lo.detach().cpu().numpy(), z_hi.detach().cpu().numpy(),
+            settings.dt, min_dz=dz)
+        k2m = measured_window_candidates(settings, z_lo, z_hi, poses,
+                                         intrinsics, H, W)
+        if k2m < k2:
+            log(f"[INFO] trajectory-measured window candidates: "
+                f"K2={k2m} (geometric bound {k2})")
+            k2 = k2m
+        else:
+            log(f"[INFO] adaptive window candidates: K2={k2} "
+                f"(measured {k2m} >= geometric bound)")
     t_max = float(np.linalg.norm(np.asarray(poses)[:, :3, 3], axis=1).max()
                   ) + math.sqrt(3.0) * settings.bound
     drift = nb_block_drift_cells(settings.dt, settings.bound,
@@ -479,7 +481,7 @@ def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
         raise NotImplementedError(
             f"block-shared march drift {drift:.2f} cells exceeds the ±2 "
             "envelope for this camera/grid; the per-ray march it would "
-            "step down to is not ported yet")
+            "step down to is not ported yet (ROADMAP Queue 1 item 4)")
     return k2
 
 

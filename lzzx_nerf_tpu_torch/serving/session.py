@@ -1,57 +1,57 @@
-"""Serving session over a trained state (port of the load, plan, frame and
-chunk loop of lzzx_nerf_tpu/serving/session.py for the production serving
-point).
+"""Serving sessions of the port (lzzx_nerf_tpu/serving/session.py).
 
-The session is built once from a trained-state file and a device: it loads
-the EMA head and the torso, bakes the bf16 head tables and the f32 torso
-table, builds the occupancy tables, and plans the march over the poses it
-will render (the plan):
-- K2 from the trajectory-measured windows;
-- the ray budget from the prepass admission (the largest over the poses),
-  grown so the long bucket holds its own demand (bench.py's sizing);
-- the short/long bucket plan (measure_bucket_plan) and its short budget;
-- the eval budget from the host-measured real rays (measure_real_blocks_
-  host, the largest over the poses) x 1.25;
-- the stage-2 budget from the ray budget (0.375 of it, in 1024-slot
-  steps).
+Two sessions run one chunk program (_Session):
 
-Each frame runs audio encode with the smooth-lips EMA (in its masked form,
-so a chunk has no Python branch), rays, the torso pass,
-render_rays_compact_blocks (nb5wp march with prepass, bucket march, eval
-re-compaction, stage split 8) and the yuv420 packing. A chunk of frames
-runs from static input buffers into static output buffers; on a GPU it is
-captured once per plan as a CUDA graph and replayed (graph=False runs the
-same chunk program eagerly: the path the graph is held to). Frames and
-their counters are copied to pinned host buffers on a side stream and read
-one chunk behind the dispatch.
+- ServingSession, the port bench's: built from a trained-state file, it
+  renders the state's poses (or given ones) over a white background,
+  with a plan measured over those poses.
+- InferenceSession, the JAX session's API: load_model(data_path,
+  workspace) reads a dataset directory (poses, intrinsics, frame size,
+  background, eye areas, audio) and the workspace's production_state.pkl;
+  the plan comes from the Config as the JAX session's _compile_render
+  builds it; set_audio_features, run(sink) and run_live(feature_stream,
+  sink) stream frames into a FrameSink (serving/streaming.py).
 
-The rebuild escapes of the JAX session: when a chunk's counters show that
-a frame needed more than the plan holds (admitted rays > ray budget, a
-window > K2, real rays > eval budget, long-bucket rays > long budget), the
-session warns, streams the chunk as rendered and rebuilds the plan (and
-captures the graph again) at the next chunk boundary.
+What both share: the trained state on one device (the EMA head with its
+bf16 tables, the torso with its f32 table when the state has one, the
+occupancy tables), the frame (audio encode with the smooth-lips EMA in
+its masked form, so a chunk has no Python branch; rays; the torso pass
+or the plain background; render_rays_compact_blocks: nb5wp march with
+the prepass, the bucket march, the eval re-compaction, the staged eval;
+yuv420p or rgb24 bytes), the chunk program (static input buffers to
+static output buffers; on a GPU captured once per plan as a CUDA graph
+and replayed), the chunk loop (inputs staged in pinned host buffers,
+frames and counters copied back on a side stream and read one chunk
+behind the dispatch, strictly in order), and the rebuild escapes of the
+JAX session: when a chunk's counters show that a frame needed more than
+the plan holds (admitted rays > ray budget, a window > K2, real rays >
+eval budget, long-bucket rays > long budget), the session warns, streams
+the chunk as rendered and rebuilds the plan (and captures the graph
+again) at the next chunk boundary.
 
 Diverges from the JAX session: stage-2 survivors over the stage-2 budget
-(rays still transmissive at the split, whose samples 8-15 the overflow
-drops) are an escape too. The JAX session warns and keeps truncating them;
-this session rebuilds with 1.25 x the observed survivors, rounded up to
-the granule like the ray budget (capped at the ray budget, which holds
-every survivor). At the production 0.375 the trained state's own poses
-overflow it on every chunk.
+(rays still transmissive at the split, whose samples after it the
+overflow drops) are an escape too. The JAX session warns and keeps
+truncating them; this session rebuilds with 1.25 x the observed
+survivors, rounded up to the granule like the ray budget (capped at the
+ray budget, which holds every survivor).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Union
+from contextlib import nullcontext
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..config import Config
 from ..models.nerf import NeRFField, TorsoField, make_fused_apply
 from ..ops.march import num_candidates
 from ..ops.march2 import (block_view, bucket_short_budget,
@@ -64,8 +64,10 @@ from ..render.renderer import (build_torso_plan, render_rays_compact_blocks,
 from ..render.state import OccupancyState, RenderSettings
 from ..utils.color import rgb_to_yuv420
 from ..utils.device import resolve_device
+from ..utils.profiling import PhaseAccumulator
 from ..utils.rays import get_bg_coords, get_rays
 from .state_io import load_trained_state, params_from_jax
+from .streaming import FrameSink, NullSink
 
 SMOOTH_LIPS = 0.35   # EMA weight of the previous frame's audio code
 # the production serving point (the JAX Config's infer_stage_split and
@@ -84,8 +86,442 @@ def _ceil_to(x: float, gran: int) -> int:
     return -(-int(x) // gran) * gran
 
 
-class ServingSession:
-    """Render yuv420 frames from a trained state on one device.
+class _Session:
+    """A trained identity on one device and the chunk program that
+    renders it. A subclass loads it (_load) and sizes the plan
+    (_build_plan: k2, budget, bucket, long_budget, eval_budget,
+    stage2_budget, from the overrides the escapes raise)."""
+
+    stage_split = STAGE_SPLIT
+
+    # ---- the identity ----------------------------------------------------
+
+    def _load(self, st: dict, device: torch.device, settings: RenderSettings,
+              H: int, W: int, intrinsics, poses, bg: np.ndarray, chunk: int,
+              att: int = 2, log=print) -> None:
+        """Put the state `st` (load_trained_state's dict) on `device` for
+        H x W frames at `poses` [P, 4, 4] over the background `bg`
+        [H, W, 3]: the head (EMA weights, bf16 tables), the torso when the
+        state has one (f32 table, the frame-invariant torso plan), the
+        occupancy and its tables."""
+        self.device = dev = device
+        self.log = log
+        self.settings = settings
+        self.H, self.W = H, W
+        self.intrinsics = tuple(float(v) for v in intrinsics)
+        self.poses = np.asarray(poses, np.float32).reshape(-1, 4, 4)
+        self.poses_dev = torch.as_tensor(self.poses, device=dev)
+        self.aabb = torch.tensor(settings.aabb, dtype=torch.float32,
+                                 device=dev)
+        # the torso's inverse poses, on the host once (torch.linalg.inv
+        # checks its result on the host, which a CUDA graph cannot hold)
+        self.pose_inv_t = torch.linalg.inv(
+            torch.as_tensor(self.poses).transpose(1, 2)).to(dev)
+        self.occ = OccupancyState(**{
+            k: torch.as_tensor(np.asarray(v), device=dev)
+            for k, v in st["occ"].items()})
+
+        head = st["head"]
+        codes = head.get("individual_codes")
+        self.field = NeRFField(
+            audio_in_dim=int(st["meta"]["audio_dim"]), att=att,
+            ind_dim=0 if codes is None else int(np.shape(codes)[1]),
+            ind_num=1 if codes is None else int(np.shape(codes)[0]))
+        self.field.load_state_dict(params_from_jax(head))
+        self.field.to(dev).eval()
+        self.ind_code = (None if codes is None
+                         else self.field.individual_codes[0].detach())
+        # bf16 head tables, baked in f32 and cast once (serving default)
+        self.packed = self.field.bake_tables(torch.bfloat16)
+
+        frame = H * W
+        self.bg = torch.as_tensor(
+            np.asarray(bg, np.float32).reshape(frame, 3), device=dev)
+        torso = st["torso"]
+        self.torso = self.torso_packed = self.torso_plan = None
+        if torso is not None:
+            tcodes = np.asarray(torso["individual_codes_torso"])
+            self.torso = TorsoField(torso_shrink=settings.torso_shrink,
+                                    ind_dim_torso=tcodes.shape[1],
+                                    ind_num=tcodes.shape[0])
+            self.torso.load_state_dict(params_from_jax(torso))
+            self.torso.to(dev).eval()
+            self.torso_packed = self.torso.bake_table(torch.float32)
+            self.torso_plan = build_torso_plan(
+                settings, self.occ, get_bg_coords(H, W, device=dev)[0])
+        self.tables = build_inference_tables(self.occ.occ, settings.bound)
+
+        self.gran = 1024 if frame >= 65536 else 256
+        self.frame_cap = max(self.gran, frame // self.gran * self.gran)
+        self._pending: Dict[str, int] = {}
+        self._overflow_warned = self._long_warned = False
+        self.rebuilds = 0
+        self.chunk = max(1, chunk)
+        # the smooth-lips carry
+        self._prev_enc = torch.zeros((1, self.field.audio_dim), device=dev)
+        self._has_prev = torch.zeros((), device=dev)
+        self._bufs_key = None
+        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                             else None)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches: Dict[str, int] = {}
+        self.captures = 0
+
+    def _buffers(self, fmt: str, aud_shape) -> None:
+        """The chunk program's static buffers for the chunk size, the
+        output format ("yuv420p" or "rgb24") and the shape of a frame's
+        audio window: inputs (pose id, eye, valid per frame; the audio
+        windows), outputs (frame bytes, counters), and their pinned host
+        copies, one set per chunk in flight. A change drops the graph."""
+        key = (self.chunk, fmt, tuple(aud_shape))
+        if key == self._bufs_key:
+            return
+        C, dev = self.chunk, self.device
+        frame = self.H * self.W
+        nbytes = frame * 3 // 2 if fmt == "yuv420p" else frame * 3
+        pin = dev.type == "cuda"
+
+        def pair(shape, dtype=torch.float32):
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    [torch.zeros(shape, dtype=dtype, pin_memory=pin)
+                     for _ in range(PIPELINE)])
+
+        self._in_meta, self._host_meta = pair((C, 3))
+        self._in_aud, self._host_aud = pair((C, *aud_shape))
+        self._out, self._host_out = pair((C, nbytes), torch.uint8)
+        self._out_cnt, self._host_cnt = pair((C, len(COUNTERS)), torch.int64)
+        self._fmt = fmt
+        self._bufs_key = key
+        self._graph = None
+
+    # ---- the frame program ------------------------------------------------
+
+    def reset_audio(self) -> None:
+        """Forget the smooth-lips carry (a new audio stream)."""
+        self._has_prev.zero_()
+        self._prev_enc.zero_()
+
+    @torch.no_grad()
+    def encode_audio(self, auds: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Audio encode + one smooth-lips EMA step, in the JAX session's
+        masked form: the carry advances only where valid > 0 (default 1)."""
+        enc_new = self.field.encode_audio(auds)
+        enc = torch.where(self._has_prev > 0,
+                          SMOOTH_LIPS * self._prev_enc
+                          + (1 - SMOOTH_LIPS) * enc_new, enc_new)
+        if valid is None:
+            valid = torch.ones((), device=self.device)
+        self._prev_enc.copy_(torch.where(valid > 0, enc, self._prev_enc))
+        self._has_prev.copy_(torch.maximum(self._has_prev, valid))
+        return enc
+
+    @torch.no_grad()
+    def render_frame(self, pose_id, enc_a: torch.Tensor, eye: torch.Tensor,
+                     use_kernels: bool = True, fmt: str = "yuv420p"
+                     ) -> Dict[str, torch.Tensor]:
+        """One frame of session pose `pose_id` (an int or a [1] int64
+        device tensor) -> {"yuv": [H*W*3//2] uint8 (fmt "yuv420p") or
+        "rgb": [H*W*3] uint8 (fmt "rgb24", the clipped image x 255
+        truncated, as the JAX session casts it), "image", "march_mask"
+        (the samples that reach the eval, slot-ordered), and the counters
+        of COUNTERS that the plan reports} (device tensors, not
+        synchronised)."""
+        H, W = self.H, self.W
+        if isinstance(pose_id, int):
+            pose_id = torch.tensor([pose_id], device=self.device)
+        pose = self.poses_dev.index_select(0, pose_id)[0]
+        rays = get_rays(pose[None], self.intrinsics, H, W)
+        origin = rays["rays_o"][0, 0]
+        rays_d = rays["rays_d"][0]
+        apply = make_fused_apply(self.field, self.packed, enc_a,
+                                 self.ind_code, eye, use_kernel=use_kernels)
+        frame_bg = self.bg
+        if self.torso is not None:
+            inv_t = self.pose_inv_t.index_select(0, pose_id)[0]
+
+            def torso_apply(coords, p, code):
+                return self.torso(coords, p, code, self.torso_packed, inv_t)
+
+            frame_bg = run_torso_compact(
+                torso_apply, self.torso_plan, pose,
+                self.torso.individual_codes_torso[0], self.bg)
+        out = render_rays_compact_blocks(
+            apply, self.settings, origin, rays_d, H, W, frame_bg,
+            budget=self.budget, tables=self.tables,
+            window_candidates=self.k2, stage_split=self.stage_split,
+            stage2_budget=self.stage2_budget,
+            march_variant="nb5wp" if use_kernels else "nb5w",
+            eval_budget=self.eval_budget, march_bucket=self.bucket,
+            aabb=self.aabb)
+        img = torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
+        res = {"image": img, "march_mask": out["march_mask"],
+               **{k: out[k] for k in COUNTERS if k in out}}
+        if fmt == "yuv420p":
+            res["yuv"] = rgb_to_yuv420(img)
+        else:
+            res["rgb"] = (img * 255).to(torch.uint8).reshape(-1)
+        return res
+
+    def _chunk_program(self, frames: int) -> None:
+        """The first `frames` frames of the chunk, static inputs -> static
+        outputs (what a CUDA graph records)."""
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        key = "yuv" if self._fmt == "yuv420p" else "rgb"
+        for j in range(frames):
+            enc = self.encode_audio(self._in_aud[j], self._in_meta[j, 2])
+            out = self.render_frame(self._in_meta[j, :1].long(), enc,
+                                    self._in_meta[j, 1:2], fmt=self._fmt)
+            self._out[j].copy_(out[key])
+            self._out_cnt[j].copy_(torch.stack(
+                [out.get(k, zero) for k in COUNTERS]))
+
+    def _capture(self) -> None:
+        """Capture the chunk program as a CUDA graph for the current plan.
+        One eager frame first warms up what initialises lazily (libraries,
+        kernel attributes, cached constants); the carry it advances is put
+        back. Launches recorded in the capture are counted at each
+        replay, not at the capture."""
+        saved = self._prev_enc.clone(), self._has_prev.clone()
+        self._chunk_program(1)
+        self._prev_enc.copy_(saved[0])
+        self._has_prev.copy_(saved[1])
+        torch.cuda.synchronize(self.device)
+        self._graph = None
+        before = dict(kernels.launches)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            self._chunk_program(self.chunk)
+        self._graph_launches = {k: kernels.launches[k] - before[k]
+                                for k in before}
+        kernels.launches.update(before)
+        self._graph = g
+        self.captures += 1
+
+    # ---- the chunk loop ---------------------------------------------------
+
+    def _dispatch(self, slot: int, use_graph: bool) -> None:
+        if use_graph:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            for k, n in self._graph_launches.items():
+                kernels.launches[k] += n
+        else:
+            self._chunk_program(self.chunk)
+        if self._copy_stream is None:
+            self._host_out[slot].copy_(self._out)
+            self._host_cnt[slot].copy_(self._out_cnt)
+            return
+        main = torch.cuda.current_stream(self.device)
+        cs = self._copy_stream
+        cs.wait_stream(main)
+        with torch.cuda.stream(cs):
+            self._host_out[slot].copy_(self._out, non_blocking=True)
+            self._host_cnt[slot].copy_(self._out_cnt, non_blocking=True)
+        # the next chunk overwrites the outputs after this copy
+        main.wait_stream(cs)
+
+    @torch.no_grad()
+    def _stream(self, start: int, n: int, frame_inputs: Callable,
+                emit: Callable, fmt: str, use_graph: bool,
+                acc: Optional[PhaseAccumulator] = None) -> None:
+        """Render frames [start, n) in chunks of self.chunk, the chunk
+        lattice anchored at `start`. frame_inputs(i) -> (pose id, eye,
+        audio window) of frame i. A tail chunk repeats its last frame in
+        slots that render but do not advance the carry.
+        emit(base, count, frames, counters) receives each chunk once its
+        frames are on the host and its counters checked, strictly in
+        order: frames [count, bytes] uint8 and counters [count,
+        len(COUNTERS)], views of buffers the stream reuses (copy what is
+        kept). acc: time the host phases, reported every 25 chunks."""
+        if use_graph and self.device.type != "cuda":
+            raise ValueError("CUDA-graph capture needs a CUDA device")
+        ph = acc.phase if acc else (lambda name: nullcontext())
+        C = self.chunk
+        queue: deque = deque()
+        for n_chunk, base in enumerate(range(start, n, C)):
+            if self._pending and self._rebuild_due():
+                while queue:
+                    self._consume(queue.popleft(), emit)
+                if self._rebuild_due():
+                    self._rebuild()
+            self._pending = {}
+            count = min(C, n - base)
+            slot = n_chunk % PIPELINE
+            with ph("stack-inputs"):
+                ins = [frame_inputs(base + min(j, count - 1))
+                       for j in range(C)]
+                self._buffers(fmt, np.shape(ins[0][2]))
+                self._host_meta[slot].numpy()[:] = [
+                    (float(p), float(e), 1.0 if j < count else 0.0)
+                    for j, (p, e, _) in enumerate(ins)]
+                self._host_aud[slot].numpy()[:] = np.stack(
+                    [a for _, _, a in ins])
+                self._in_meta.copy_(self._host_meta[slot], non_blocking=True)
+                self._in_aud.copy_(self._host_aud[slot], non_blocking=True)
+            with ph("dispatch"):
+                self._dispatch(slot, use_graph)
+            done = None
+            if self._copy_stream is not None:
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            queue.append((base, count, slot, done, dict(
+                k2=self.k2, bucket=self.bucket, long_budget=self.long_budget,
+                eval_budget=self.eval_budget,
+                stage2_budget=self.stage2_budget)))
+            if len(queue) >= PIPELINE:
+                with ph("fetch+sink"):
+                    self._consume(queue.popleft(), emit)
+            if acc and n_chunk and n_chunk % 25 == 0:
+                self.log(f"[profile] frame {base}: {acc.report()}")
+        while queue:
+            with ph("fetch+sink"):
+                self._consume(queue.popleft(), emit)
+
+    def _consume(self, entry, emit: Callable) -> None:
+        """Read one chunk's counters after its copy, check them against
+        the plan it ran with (the rebuild escapes), emit its frames."""
+        base, count, slot, done, plan = entry
+        if done is not None:
+            done.synchronize()
+        cnt = self._host_cnt[slot][:count].numpy().copy()
+        self._check_chunk(base, count, cnt, plan)
+        emit(base, count, self._host_out[slot][:count].numpy(), cnt)
+
+    def _want(self, key: str, value: int) -> None:
+        # max(): a later, smaller overflow never shrinks a pending rebuild
+        self._pending[key] = max(self._pending.get(key, 0), value)
+
+    def _check_chunk(self, base: int, count: int, cnt: np.ndarray,
+                     plan: dict) -> None:
+        gran, cap = self.gran, self.frame_cap
+        c = {k: int(cnt[:, i].max()) for i, k in enumerate(COUNTERS)}
+        last = base + count - 1
+        if plan["bucket"] and c["n_long"] > plan["long_budget"]:
+            # the short budget is fixed by the plan: the total grows
+            want = min(cap, plan["bucket"][1] + max(
+                gran, _ceil_to(c["n_long"] * 1.25, gran)))
+            if want > self.budget:
+                self.log(f"[WARN] frames {base}..{last}: {c['n_long']} "
+                         f"long-bucket rays exceed the long budget "
+                         f"{plan['long_budget']}; rebuilding with total "
+                         f"budget {want} at the next chunk boundary")
+                self._want("budget", want)
+            elif not self._long_warned:
+                self.log(f"[WARN] frames {base}..{last}: {c['n_long']} "
+                         f"long-bucket rays exceed the long budget "
+                         f"{plan['long_budget']} with the total budget at "
+                         "the frame cap; overflow rendered as background")
+                self._long_warned = True
+        if c["n_winmax"] > plan["k2"]:
+            want = c["n_winmax"] + 4
+            want += want % 2
+            if want > max(self.k2, self._pending.get("k2", 0)):
+                self.log(f"[WARN] frames {base}..{last}: a window needs "
+                         f"{c['n_winmax']} march candidates > "
+                         f"K2={plan['k2']} (truncated rays lose far-side "
+                         f"samples); rebuilding with K2={want} at the next "
+                         "chunk boundary")
+                self._pending["k2"] = want
+            else:
+                self.log(f"[WARN] frames {base}..{last}: {count} frame(s) "
+                         f"streamed truncated (planned at K2={plan['k2']}, "
+                         f"needed {c['n_winmax']}) before the K2 rebuild "
+                         "takes effect")
+        if c["n_stage2"] > plan["stage2_budget"]:
+            # the plan caps it at the ray budget it is built with
+            want = min(cap, max(gran, _ceil_to(c["n_stage2"] * 1.25, gran)))
+            msg = (f"[WARN] frames {base}..{last}: {c['n_stage2']} "
+                   f"stage-2 survivors exceed the stage-2 budget "
+                   f"{plan['stage2_budget']}; those rays truncate at the "
+                   "split")
+            if want > max(
+                    self.stage2_budget, self._pending.get("stage2", 0)):
+                self.log(f"{msg}; rebuilding with stage-2 budget {want} at "
+                         "the next chunk boundary")
+                self._want("stage2", want)
+            else:
+                self.log(msg)
+        if plan["eval_budget"] and c["n_real"] > plan["eval_budget"]:
+            want = min(self.budget,
+                       max(gran, _ceil_to(c["n_real"] * 1.25, gran)))
+            if want > self.eval_budget:
+                self.log(f"[WARN] frames {base}..{last}: {c['n_real']} "
+                         f"real-sample rays exceed eval budget "
+                         f"{plan['eval_budget']}; rebuilding with {want} at "
+                         "the next chunk boundary")
+                self._want("eval", want)
+        if c["n_active"] > self.budget and self.budget < cap:
+            want = min(cap, max(gran, _ceil_to(c["n_active"] * 1.25, gran)))
+            self.log(f"[WARN] frames {base}..{last}: {c['n_active']} "
+                     f"active rays exceed budget {self.budget}; rebuilding "
+                     f"with budget {want} at the next chunk boundary")
+            self._want("budget", want)
+        if (not self._overflow_warned and self.budget >= cap
+                and c["n_active"] > self.budget):
+            self.log(f"[WARN] frames {base}..{last}: {c['n_active']} "
+                     f"active rays exceed the whole-frame budget "
+                     f"{self.budget}; overflow rendered as background")
+            self._overflow_warned = True
+
+    def _rebuild_due(self) -> bool:
+        p = self._pending
+        return (p.get("budget", 0) > self.budget or p.get("k2", 0) > self.k2
+                or p.get("eval", 0) > self.eval_budget
+                or p.get("stage2", 0) > self.stage2_budget)
+
+    def rebuild_pending(self) -> bool:
+        """True when the last chunk rendered asks for a rebuild, which the
+        next render makes before its first chunk."""
+        return bool(self._pending) and self._rebuild_due()
+
+    def _rebuild(self) -> None:
+        t0 = time.perf_counter()
+        p = self._pending
+        if p.get("budget", 0) > self.budget:
+            self._budget_override = p["budget"]
+        if p.get("k2", 0) > self.k2:
+            self._k2_override = p["k2"]
+        if p.get("eval", 0) > self.eval_budget:
+            self._eval_override = p["eval"]
+        if p.get("stage2", 0) > self.stage2_budget:
+            self._stage2_override = p["stage2"]
+        self._pending = {}
+        self.rebuilds += 1
+        self.log("rebuild at a chunk boundary")
+        self._build_plan(t0)
+
+    def _build_plan(self, t0: float) -> None:
+        raise NotImplementedError
+
+    def _plan_line(self, t0: float, detail: str) -> None:
+        self._graph = None
+        self.build_seconds = time.perf_counter() - t0
+        b = self.bucket
+        self.log(
+            f"plan: K2={self.k2} K2s={b[0] if b else 0} "
+            f"budget={self.budget} short_budget={b[1] if b else 0} "
+            f"long_budget={self.long_budget} eval_budget={self.eval_budget} "
+            f"stage2_budget={self.stage2_budget} ({detail}; "
+            f"{self.build_seconds:.1f} s)")
+
+
+class ServingSession(_Session):
+    """Render yuv420 frames of a trained state's poses on one device (the
+    port bench's session), over a white background.
+
+    The plan is measured over the poses it will render:
+    - K2 from the trajectory-measured windows;
+    - the ray budget from the prepass admission (the largest over the
+      poses), grown so the long bucket holds its own demand (bench.py's
+      sizing);
+    - the short/long bucket plan (measure_bucket_plan) and its short
+      budget;
+    - the eval budget from the host-measured real rays
+      (measure_real_blocks_host, the largest over the poses) x 1.25;
+    - the stage-2 budget from the ray budget (0.375 of it, in 1024-slot
+      steps).
 
     march_bucket: True plans the short/long bucket march over the poses,
     False marches one bucket, a tuple (K2s, short_budget) fixes the plan.
@@ -102,59 +538,19 @@ class ServingSession:
                  eval_recompact: bool = True, budget: int = 0, k2: int = 0,
                  eval_budget: int = 0, stage2_budget: int = 0):
         t_build = time.perf_counter()
-        self.device = dev = resolve_device(device)
-        self.chunk = max(1, chunk)
-        self.log = log
         st = load_trained_state(state_path)
-        meta = st["meta"]
-        self.meta = meta
-        grid = int(meta["grid"])
+        meta = self.meta = st["meta"]
         aabb = tuple(float(x) for x in meta["aabb"])
         dt = float(meta["dt"])
-        self.settings = RenderSettings(
-            bound=1.0, cascade=1, grid_size=grid, max_steps=16, dt=dt,
-            num_cand=num_candidates(aabb, 0.05, dt), aabb=aabb)
-        self.H = self.W = int(res or meta["res"])
-        sc = self.H / float(meta["res"])
-        self.intrinsics = tuple(float(v) * sc for v in meta["intrinsics"])
-        self.poses = np.asarray(meta["poses"] if poses is None else poses,
-                                np.float32).reshape(-1, 4, 4)
-        self.poses_dev = torch.as_tensor(self.poses, device=dev)
-        self.aabb = torch.tensor(aabb, dtype=torch.float32, device=dev)
-        # the torso's inverse poses, on the host once (torch.linalg.inv
-        # checks its result on the host, which a CUDA graph cannot hold)
-        self.pose_inv_t = torch.linalg.inv(
-            torch.as_tensor(self.poses).transpose(1, 2)).to(dev)
-
-        occ = st["occ"]
-        self.occ = OccupancyState(**{
-            k: torch.as_tensor(np.asarray(v), device=dev)
-            for k, v in occ.items()})
-
-        head = st["head"]
-        self.field = NeRFField(
-            audio_in_dim=int(meta["audio_dim"]),
-            ind_num=int(np.asarray(head["individual_codes"]).shape[0]))
-        self.field.load_state_dict(params_from_jax(head))
-        self.field.to(dev).eval()
-        # bf16 head tables, baked in f32 and cast once (serving default)
-        self.packed = self.field.bake_tables(torch.bfloat16)
-
-        torso = st["torso"]
-        self.torso = TorsoField(
-            ind_dim_torso=8,
-            ind_num=int(torso["individual_codes_torso"].shape[0]))
-        self.torso.load_state_dict(params_from_jax(torso))
-        self.torso.to(dev).eval()
-        self.torso_packed = self.torso.bake_table(torch.float32)
-
-        self.tables = build_inference_tables(self.occ.occ,
-                                             self.settings.bound)
-        frame = self.H * self.W
-        self.bg = torch.ones((frame, 3), device=dev)
-        bg_coords = get_bg_coords(self.H, self.W, device=dev)[0]
-        self.torso_plan = build_torso_plan(self.settings, self.occ,
-                                           bg_coords)
+        settings = RenderSettings(
+            bound=1.0, cascade=1, grid_size=int(meta["grid"]), max_steps=16,
+            dt=dt, num_cand=num_candidates(aabb, 0.05, dt), aabb=aabb)
+        H = W = int(res or meta["res"])
+        sc = H / float(meta["res"])
+        self._load(st, resolve_device(device), settings, H, W,
+                   [float(v) * sc for v in meta["intrinsics"]],
+                   meta["poses"] if poses is None else poses,
+                   np.ones((H, W, 3), np.float32), chunk, log=log)
 
         # plan inputs: what was asked for, and what escapes have raised
         self.march_bucket = march_bucket
@@ -163,41 +559,10 @@ class ServingSession:
         self._k2_override = k2
         self._eval_override = eval_budget
         self._stage2_override = stage2_budget
-        self._pending: Dict[str, int] = {}
-        self._overflow_warned = self._long_warned = False
         self._measured: Dict[int, dict] = {}
-        self.gran = 1024 if frame >= 65536 else 256
-        self.frame_cap = max(self.gran, frame // self.gran * self.gran)
         self.k2_measured = 0 if k2 else resolve_march_plan(
             self.settings, self.tables.z_lo, self.tables.z_hi, self.poses,
             self.intrinsics, self.H, self.W, log=log)
-
-        # the chunk program's static buffers: inputs (pose id, eye, valid
-        # per frame; the audio windows), the smooth-lips carry, outputs
-        C = self.chunk
-        self._in_meta = torch.zeros((C, 3), device=dev)
-        self._in_aud = torch.zeros((C, 8, 16, int(meta["audio_dim"])),
-                                   device=dev)
-        self._prev_enc = torch.zeros((1, self.field.audio_dim), device=dev)
-        self._has_prev = torch.zeros((), device=dev)
-        self._out_yuv = torch.zeros((C, frame * 3 // 2), dtype=torch.uint8,
-                                    device=dev)
-        self._out_cnt = torch.zeros((C, len(COUNTERS)), dtype=torch.int64,
-                                    device=dev)
-        pin = dev.type == "cuda"
-        self._host_meta = [torch.zeros((C, 3), pin_memory=pin)
-                           for _ in range(PIPELINE)]
-        self._host_yuv = [torch.zeros((C, frame * 3 // 2), dtype=torch.uint8,
-                                      pin_memory=pin)
-                          for _ in range(PIPELINE)]
-        self._host_cnt = [torch.zeros((C, len(COUNTERS)), dtype=torch.int64,
-                                      pin_memory=pin)
-                          for _ in range(PIPELINE)]
-        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
-                             else None)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_launches: Dict[str, int] = {}
-        self.captures = 0
         self._build_plan(t_build)
 
     # ---- plan ------------------------------------------------------------
@@ -289,252 +654,12 @@ class ServingSession:
         self.stage2_budget = (
             min(self._stage2_override, budget) if self._stage2_override
             else max(1024, int(budget * STAGE2_FRAC) // 1024 * 1024))
-        self._graph = None
-        self.build_seconds = time.perf_counter() - t0
-        self.log(
-            f"plan: K2={k2} K2s={bucket[0] if bucket else 0} "
-            f"budget={budget} short_budget={bucket[1] if bucket else 0} "
-            f"long_budget={self.long_budget} eval_budget={eval_budget} "
-            f"stage2_budget={self.stage2_budget} (prepass admits up to "
-            f"{m['n_adm']} rays, host-measured real rays up to "
-            f"{m['n_real']}, over {len(self.poses)} poses; "
-            f"{self.build_seconds:.1f} s)")
+        self._plan_line(t0, f"prepass admits up to {m['n_adm']} rays, "
+                        f"host-measured real rays up to {m['n_real']}, over "
+                        f"{len(self.poses)} poses")
 
-    # ---- the frame program ------------------------------------------------
+    # ---- rendering ------------------------------------------------------
 
-    def reset_audio(self) -> None:
-        """Forget the smooth-lips carry (a new audio stream)."""
-        self._has_prev.zero_()
-        self._prev_enc.zero_()
-
-    @torch.no_grad()
-    def encode_audio(self, auds: torch.Tensor,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Audio encode + one smooth-lips EMA step, in the JAX session's
-        masked form: the carry advances only where valid > 0 (default 1)."""
-        enc_new = self.field.encode_audio(auds)
-        enc = torch.where(self._has_prev > 0,
-                          SMOOTH_LIPS * self._prev_enc
-                          + (1 - SMOOTH_LIPS) * enc_new, enc_new)
-        if valid is None:
-            valid = torch.ones((), device=self.device)
-        self._prev_enc.copy_(torch.where(valid > 0, enc, self._prev_enc))
-        self._has_prev.copy_(torch.maximum(self._has_prev, valid))
-        return enc
-
-    @torch.no_grad()
-    def render_frame(self, pose_id, enc_a: torch.Tensor, eye: torch.Tensor,
-                     use_kernels: bool = True) -> Dict[str, torch.Tensor]:
-        """One frame of session pose `pose_id` (an int or a [1] int64
-        device tensor) -> {"yuv": [H*W*3//2] uint8, "image", "march_mask"
-        (the samples that reach the eval, slot-ordered), and the counters
-        of COUNTERS that the plan reports} (device tensors, not
-        synchronised)."""
-        H, W = self.H, self.W
-        if isinstance(pose_id, int):
-            pose_id = torch.tensor([pose_id], device=self.device)
-        pose = self.poses_dev.index_select(0, pose_id)[0]
-        inv_t = self.pose_inv_t.index_select(0, pose_id)[0]
-        rays = get_rays(pose[None], self.intrinsics, H, W)
-        origin = rays["rays_o"][0, 0]
-        rays_d = rays["rays_d"][0]
-        apply = make_fused_apply(self.field, self.packed, enc_a,
-                                 self.field.individual_codes[0], eye,
-                                 use_kernel=use_kernels)
-
-        def torso_apply(coords, p, code):
-            return self.torso(coords, p, code, self.torso_packed, inv_t)
-
-        frame_bg = run_torso_compact(
-            torso_apply, self.torso_plan, pose,
-            self.torso.individual_codes_torso[0], self.bg)
-        out = render_rays_compact_blocks(
-            apply, self.settings, origin, rays_d, H, W, frame_bg,
-            budget=self.budget, tables=self.tables,
-            window_candidates=self.k2, stage_split=STAGE_SPLIT,
-            stage2_budget=self.stage2_budget,
-            march_variant="nb5wp" if use_kernels else "nb5w",
-            eval_budget=self.eval_budget, march_bucket=self.bucket,
-            aabb=self.aabb)
-        img = torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
-        return {"yuv": rgb_to_yuv420(img), "image": img,
-                "march_mask": out["march_mask"],
-                **{k: out[k] for k in COUNTERS if k in out}}
-
-    def _chunk_program(self, frames: int) -> None:
-        """The first `frames` frames of the chunk, static inputs -> static
-        outputs (what a CUDA graph records)."""
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        for j in range(frames):
-            enc = self.encode_audio(self._in_aud[j], self._in_meta[j, 2])
-            out = self.render_frame(self._in_meta[j, :1].long(), enc,
-                                    self._in_meta[j, 1:2])
-            self._out_yuv[j].copy_(out["yuv"])
-            self._out_cnt[j].copy_(torch.stack(
-                [out.get(k, zero) for k in COUNTERS]))
-
-    def _capture(self) -> None:
-        """Capture the chunk program as a CUDA graph for the current plan.
-        One eager frame first warms up what initialises lazily (libraries,
-        kernel attributes, cached constants); the carry it advances is put
-        back. Launches recorded in the capture are counted at each
-        replay, not at the capture."""
-        saved = self._prev_enc.clone(), self._has_prev.clone()
-        self._chunk_program(1)
-        self._prev_enc.copy_(saved[0])
-        self._has_prev.copy_(saved[1])
-        torch.cuda.synchronize(self.device)
-        self._graph = None
-        before = dict(kernels.launches)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            self._chunk_program(self.chunk)
-        self._graph_launches = {k: kernels.launches[k] - before[k]
-                                for k in before}
-        kernels.launches.update(before)
-        self._graph = g
-        self.captures += 1
-
-    # ---- the chunk loop ---------------------------------------------------
-
-    def _dispatch(self, slot: int, use_graph: bool) -> None:
-        if use_graph:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
-            for k, n in self._graph_launches.items():
-                kernels.launches[k] += n
-        else:
-            self._chunk_program(self.chunk)
-        if self._copy_stream is None:
-            self._host_yuv[slot].copy_(self._out_yuv)
-            self._host_cnt[slot].copy_(self._out_cnt)
-            return
-        main = torch.cuda.current_stream(self.device)
-        cs = self._copy_stream
-        cs.wait_stream(main)
-        with torch.cuda.stream(cs):
-            self._host_yuv[slot].copy_(self._out_yuv, non_blocking=True)
-            self._host_cnt[slot].copy_(self._out_cnt, non_blocking=True)
-        # the next chunk overwrites the outputs after this copy
-        main.wait_stream(cs)
-
-    def _consume(self, entry, frames: list, diags: Dict[str, list]) -> None:
-        """Read one chunk's frames and counters, after its copy; check its
-        counters against the plan it ran with (the rebuild escapes)."""
-        base, count, slot, done, plan = entry
-        if done is not None:
-            done.synchronize()
-        cnt = self._host_cnt[slot][:count].numpy().copy()
-        yuv = self._host_yuv[slot][:count].numpy()
-        frames.extend(yuv[j].copy() for j in range(count))
-        for i, k in enumerate(COUNTERS):
-            diags[k] += [int(v) for v in cnt[:, i]]
-        self._check_chunk(base, count, cnt, plan)
-
-    def _want(self, key: str, value: int) -> None:
-        # max(): a later, smaller overflow never shrinks a pending rebuild
-        self._pending[key] = max(self._pending.get(key, 0), value)
-
-    def _check_chunk(self, base: int, count: int, cnt: np.ndarray,
-                     plan: dict) -> None:
-        gran, cap = self.gran, self.frame_cap
-        c = {k: int(cnt[:, i].max()) for i, k in enumerate(COUNTERS)}
-        last = base + count - 1
-        if plan["bucket"] and c["n_long"] > plan["long_budget"]:
-            # the short budget is fixed by the plan: the total grows
-            want = min(cap, plan["bucket"][1] + max(
-                gran, _ceil_to(c["n_long"] * 1.25, gran)))
-            if want > self.budget:
-                self.log(f"[WARN] frames {base}..{last}: {c['n_long']} "
-                         f"long-bucket rays exceed the long budget "
-                         f"{plan['long_budget']}; rebuilding with total "
-                         f"budget {want} at the next chunk boundary")
-                self._want("budget", want)
-            elif not self._long_warned:
-                self.log(f"[WARN] frames {base}..{last}: {c['n_long']} "
-                         f"long-bucket rays exceed the long budget "
-                         f"{plan['long_budget']} with the total budget at "
-                         "the frame cap; overflow rendered as background")
-                self._long_warned = True
-        if c["n_winmax"] > plan["k2"]:
-            want = c["n_winmax"] + 4
-            want += want % 2
-            if want > max(self.k2, self._pending.get("k2", 0)):
-                self.log(f"[WARN] frames {base}..{last}: a window needs "
-                         f"{c['n_winmax']} march candidates > "
-                         f"K2={plan['k2']} (truncated rays lose far-side "
-                         f"samples); rebuilding with K2={want} at the next "
-                         "chunk boundary")
-                self._pending["k2"] = want
-            else:
-                self.log(f"[WARN] frames {base}..{last}: {count} frame(s) "
-                         f"streamed truncated (planned at K2={plan['k2']}, "
-                         f"needed {c['n_winmax']}) before the K2 rebuild "
-                         "takes effect")
-        if c["n_stage2"] > plan["stage2_budget"]:
-            # the plan caps it at the ray budget it is built with
-            want = min(cap, max(gran, _ceil_to(c["n_stage2"] * 1.25, gran)))
-            msg = (f"[WARN] frames {base}..{last}: {c['n_stage2']} "
-                   f"stage-2 survivors exceed the stage-2 budget "
-                   f"{plan['stage2_budget']}; those rays truncate at the "
-                   "split")
-            if want > max(
-                    self.stage2_budget, self._pending.get("stage2", 0)):
-                self.log(f"{msg}; rebuilding with stage-2 budget {want} at "
-                         "the next chunk boundary")
-                self._want("stage2", want)
-            else:
-                self.log(msg)
-        if plan["eval_budget"] and c["n_real"] > plan["eval_budget"]:
-            want = min(self.budget,
-                       max(gran, _ceil_to(c["n_real"] * 1.25, gran)))
-            if want > self.eval_budget:
-                self.log(f"[WARN] frames {base}..{last}: {c['n_real']} "
-                         f"real-sample rays exceed eval budget "
-                         f"{plan['eval_budget']}; rebuilding with {want} at "
-                         "the next chunk boundary")
-                self._want("eval", want)
-        if c["n_active"] > self.budget and self.budget < cap:
-            want = min(cap, max(gran, _ceil_to(c["n_active"] * 1.25, gran)))
-            self.log(f"[WARN] frames {base}..{last}: {c['n_active']} "
-                     f"active rays exceed budget {self.budget}; rebuilding "
-                     f"with budget {want} at the next chunk boundary")
-            self._want("budget", want)
-        if (not self._overflow_warned and self.budget >= cap
-                and c["n_active"] > self.budget):
-            self.log(f"[WARN] frames {base}..{last}: {c['n_active']} "
-                     f"active rays exceed the whole-frame budget "
-                     f"{self.budget}; overflow rendered as background")
-            self._overflow_warned = True
-
-    def _rebuild_due(self) -> bool:
-        p = self._pending
-        return (p.get("budget", 0) > self.budget or p.get("k2", 0) > self.k2
-                or p.get("eval", 0) > self.eval_budget
-                or p.get("stage2", 0) > self.stage2_budget)
-
-    def rebuild_pending(self) -> bool:
-        """True when the last chunk rendered asks for a rebuild, which the
-        next render() makes before its first chunk."""
-        return bool(self._pending) and self._rebuild_due()
-
-    def _rebuild(self) -> None:
-        t0 = time.perf_counter()
-        p = self._pending
-        if p.get("budget", 0) > self.budget:
-            self._budget_override = p["budget"]
-        if p.get("k2", 0) > self.k2:
-            self._k2_override = p["k2"]
-        if p.get("eval", 0) > self.eval_budget:
-            self._eval_override = p["eval"]
-        if p.get("stage2", 0) > self.stage2_budget:
-            self._stage2_override = p["stage2"]
-        self._pending = {}
-        self.log("rebuild at a chunk boundary")
-        self._build_plan(t0)
-
-    @torch.no_grad()
     def render(self, auds: np.ndarray, eyes: Sequence[float],
                pose_ids: Optional[Sequence[int]] = None,
                graph: Optional[bool] = None) -> Dict[str, object]:
@@ -546,52 +671,385 @@ class ServingSession:
         uint8 arrays, a list per counter of COUNTERS (0 where the plan
         does not report it), "seconds": wall time until the last frame is
         on the host}."""
-        dev = self.device
-        use_graph = dev.type == "cuda" if graph is None else graph
-        if use_graph and dev.type != "cuda":
-            raise ValueError("CUDA-graph capture needs a CUDA device")
-        F_ = len(auds)
-        C = self.chunk
+        use_graph = self.device.type == "cuda" if graph is None else graph
+        auds = np.asarray(auds, np.float32)
         if pose_ids is None:
-            pose_ids = [f % len(self.poses) for f in range(F_)]
-        auds_t = torch.as_tensor(np.asarray(auds, np.float32), device=dev)
+            pose_ids = [f % len(self.poses) for f in range(len(auds))]
         frames: List[np.ndarray] = []
         diags: Dict[str, list] = {k: [] for k in COUNTERS}
-        queue: deque = deque()
+
+        def emit(base, count, bufs, cnt):
+            frames.extend(bufs[j].copy() for j in range(count))
+            for i, k in enumerate(COUNTERS):
+                diags[k] += [int(v) for v in cnt[:, i]]
+
         t0 = time.perf_counter()
-        for n_chunk, base in enumerate(range(0, F_, C)):
-            if self._pending and self._rebuild_due():
-                while queue:
-                    self._consume(queue.popleft(), frames, diags)
-                if self._rebuild_due():
-                    self._rebuild()
-            self._pending = {}
-            count = min(C, F_ - base)
-            slot = n_chunk % PIPELINE
-            meta = self._host_meta[slot]
-            for j in range(C):
-                f = base + min(j, count - 1)
-                meta[j, 0] = int(pose_ids[f])
-                meta[j, 1] = float(eyes[f])
-                meta[j, 2] = 1.0 if j < count else 0.0
-            self._in_meta.copy_(meta, non_blocking=True)
-            self._in_aud[:count].copy_(auds_t[base:base + count])
-            if count < C:   # the tail repeats its last frame, not carried
-                self._in_aud[count:].copy_(
-                    auds_t[base + count - 1].expand(C - count,
-                                                    *auds_t.shape[1:]))
-            self._dispatch(slot, use_graph)
-            done = None
-            if self._copy_stream is not None:
-                done = torch.cuda.Event()
-                done.record(self._copy_stream)
-            queue.append((base, count, slot, done, dict(
-                k2=self.k2, bucket=self.bucket, long_budget=self.long_budget,
-                eval_budget=self.eval_budget,
-                stage2_budget=self.stage2_budget)))
-            if len(queue) >= PIPELINE:
-                self._consume(queue.popleft(), frames, diags)
-        while queue:
-            self._consume(queue.popleft(), frames, diags)
+        self._stream(0, len(auds),
+                     lambda f: (pose_ids[f], eyes[f], auds[f]), emit,
+                     "yuv420p", use_graph)
         return {"frames": frames, "seconds": time.perf_counter() - t0,
                 **diags}
+
+
+# opt.txt keys that shape the trained model (the JAX session's list)
+_TRAINED_KEYS = ("grid_size", "max_steps", "bound", "asr_model", "exp_eye",
+                 "ind_dim", "ind_num", "att", "emb", "encoder", "min_near",
+                 "density_thresh", "scale", "offset")
+
+
+def _adopt_trained_config(cfg: Config, workspace: str) -> Config:
+    """The architecture fields of the training config saved in the
+    workspace's opt.txt (one JSON document per line, the last wins; or a
+    legacy multi-line dump); a malformed file keeps cfg."""
+    opt_path = os.path.join(workspace, "opt.txt")
+    if not os.path.exists(opt_path):
+        return cfg
+    with open(opt_path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    try:
+        try:
+            trained = json.loads(lines[-1])
+        except json.JSONDecodeError:
+            trained = json.loads("{" + text.rsplit("{", 1)[-1])
+        return cfg.replace(**{
+            k: tuple(trained[k]) if isinstance(trained[k], list)
+            else trained[k] for k in _TRAINED_KEYS if k in trained})
+    except (ValueError, IndexError, TypeError, AttributeError):
+        return cfg
+
+
+def unported_plan(cfg: Config) -> List[str]:
+    """What in cfg asks for a serving path the port does not have, each
+    with the ROADMAP item that ports it (empty: the port serves cfg)."""
+    q1 = "ROADMAP Queue 1 item"
+    checks = (
+        (cfg.cascade != 1, f"bound {cfg.bound} (cascade {cfg.cascade} > 1) "
+         f"serves through the exhaustive marcher: {q1} 4"),
+        (cfg.infer_block != 2, f"infer_block {cfg.infer_block} (per-ray "
+         f"window analysis, render_rays_compact): {q1} 4"),
+        (cfg.infer_march_group != 2, f"infer_march_group "
+         f"{cfg.infer_march_group} (group 1: {q1} 4; group 3 and the "
+         f"dilated modes: {q1} 8)"),
+        (cfg.infer_stage_split <= 0, "infer_stage_split 0 (the single-pass "
+         f"composite): {q1} 4"),
+        (cfg.infer_sample_frac > 0, "infer_sample_frac > 0 (stage-1 sample "
+         f"compaction): {q1} 8"),
+        (cfg.train_camera, f"train_camera (learned pose refinement): {q1} 5"),
+        (cfg.infer_data_parallel >= 2, "infer_data_parallel >= 2 "
+         f"(frame-parallel serving, parallel/): {q1} 7"),
+        (cfg.infer_march_variant != "nb5w", f"infer_march_variant "
+         f"{cfg.infer_march_variant!r}: {q1} 8"),
+        (not cfg.infer_march_prepass, "infer_march_prepass off (the block "
+         f"march without the prepass): {q1} 8"),
+        (not cfg.infer_table_bf16, "infer_table_bf16 off (f32 tables; the "
+         f"field kernel reads bf16): {q1} 8"),
+        (cfg.encoder != "dense", f"encoder {cfg.encoder!r}: {q1} 6"),
+        (cfg.emb, f"emb (label audio features): {q1} 8"),
+        (not cfg.exp_eye, f"exp_eye off (a field without the eye branch): "
+         f"{q1} 8"),
+    )
+    return [msg for bad, msg in checks if bad]
+
+
+class InferenceSession(_Session):
+    """Load once per identity; feed audio features; stream frames (the
+    JAX InferenceSession's API and semantics).
+
+    An identity is a dataset directory (transforms_train.json, gt_imgs/,
+    ori_imgs/, au.csv, the audio features, bc.jpg unless bg_img names
+    another background) and a workspace holding production_state.pkl
+    (and optionally opt.txt). The session serves the state's EMA head and
+    composites its torso when the state has one, else serves the head
+    over the dataset's background. Every field evaluation goes through
+    the field kernel's wrapper, whatever Config.fused_field says (its
+    values name three implementations of one function in the JAX
+    package). graph: run each chunk as a CUDA graph (default: on a GPU).
+    Entry points run on "cuda" unless device says otherwise."""
+
+    def __init__(self, cfg: Config, device=None, log=print,
+                 graph: Optional[bool] = None):
+        # serving overrides of the reference's inference script
+        self.cfg = cfg.replace(test=True, test_train=True, smooth_lips=True,
+                               smooth_path=True,
+                               smooth_path_window=cfg.smooth_path_window
+                               or 14)
+        self.device = resolve_device(device)
+        self.log = log
+        self.graph = graph
+        self._built = False
+        self._carry = False   # the smooth-lips EMA carries into run()
+        # frames of the live buffer are dropped in strides of this many
+        self._live_trim_stride = 1024
+
+    # -- model/data ----------------------------------------------------------
+
+    def load_model(self, data_path: str, workspace: str) -> None:
+        """Switch identity: the dataset at data_path and the trained
+        state workspace/production_state.pkl, with the architecture
+        fields of the workspace's opt.txt. Raises when the Config asks
+        for a path the port does not have, when the state's grid is not
+        the Config's, or when there is no state."""
+        from ..data.provider import NeRFDataset
+
+        t0 = time.perf_counter()
+        self._built = False
+        cfg = _adopt_trained_config(
+            self.cfg.replace(path=data_path, workspace=workspace), workspace)
+        bad = unported_plan(cfg)
+        if bad:
+            raise NotImplementedError("the port has no serving path for: "
+                                      + "; ".join(bad))
+        state_path = os.path.join(workspace, "production_state.pkl")
+        if not os.path.exists(state_path):
+            raise FileNotFoundError(
+                f"no trained state at {state_path} (the port serves "
+                "production_state.pkl workspaces; orbax checkpoints are not "
+                "read)")
+        st = load_trained_state(state_path)
+        meta = st["meta"]
+        if int(meta["grid"]) != cfg.grid_size:
+            raise ValueError(f"{state_path} holds a grid of {meta['grid']} "
+                             f"cells, the Config grid_size {cfg.grid_size}")
+        ds = NeRFDataset(cfg, type="train")
+        ds.training = False
+        if ds.H % 2 or ds.W % 2:
+            raise NotImplementedError(
+                f"frame size {ds.W}x{ds.H} is odd: the 2x2-block path needs "
+                "even sides (render_rays_compact: ROADMAP Queue 1 item 4)")
+        if (ds.aud_features is not None
+                and ds.aud_features.shape[-1] != int(meta["audio_dim"])):
+            raise ValueError(f"audio features of width "
+                             f"{ds.aud_features.shape[-1]} under {data_path}, "
+                             f"the state's audio net reads "
+                             f"{meta['audio_dim']}")
+        aabb = tuple(float(x) for x in meta["aabb"])
+        dt = float(meta["dt"])
+        settings = RenderSettings(
+            bound=cfg.bound, cascade=1, grid_size=cfg.grid_size,
+            max_steps=cfg.infer_samples or cfg.max_steps, dt=dt,
+            num_cand=num_candidates(aabb, cfg.min_near, dt),
+            min_near=cfg.min_near, T_thresh=cfg.T_thresh,
+            density_thresh=cfg.density_thresh,
+            density_thresh_torso=cfg.density_thresh_torso,
+            density_scale=cfg.density_scale, aabb=aabb,
+            exp_eye=cfg.exp_eye, torso_shrink=cfg.torso_shrink)
+        self.cfg, self.ds = cfg, ds
+        self._load(st, self.device, settings, ds.H, ds.W, ds.intrinsics,
+                   ds.poses, ds.bg_img, self._chunk_size(), att=cfg.att,
+                   log=self.log)
+        self.stage_split = cfg.infer_stage_split
+        self._budget_override = self._k2_override = 0
+        self._eval_override = self._stage2_override = 0
+        self._bucket_plan = None
+        self._carry = False
+        self.resumed = True
+        # K2 from the Config, else measured over the dataset's poses; the
+        # drift check raises where the JAX session steps down to group 1
+        self.k2_planned = resolve_march_plan(
+            settings, self.tables.z_lo, self.tables.z_hi, self.poses,
+            self.intrinsics, self.H, self.W,
+            k2_override=cfg.infer_window_candidates, log=self.log)
+        self._build_plan(t0)
+        self._built = True
+
+    def _build_plan(self, t0: float) -> None:
+        """The JAX session's _compile_render plan: the ray budget
+        budget_frac x the frame in granules, K2, the short/long bucket
+        plan measured once per K2 over the dataset's poses, the eval
+        budget infer_eval_frac x the ray budget, the stage-2 budget
+        infer_stage2_frac x the ray budget in 1024-slot steps; the
+        escapes' overrides take the place of each."""
+        cfg, s = self.cfg, self.settings
+        gran, cap = self.gran, self.frame_cap
+        frame = self.H * self.W
+        budget = min(cap, self._budget_override or max(
+            gran, int(cfg.budget_frac * frame) // gran * gran))
+        self.k2 = k2 = self._k2_override or self.k2_planned
+        bucket = None
+        if cfg.infer_march_bucket:
+            if self._bucket_plan is None or self._bucket_plan[0] != k2:
+                k2s, n_short, _, _ = measure_bucket_plan(
+                    s, self.tables.z_lo, self.tables.z_hi,
+                    self.tables.col_dilwords, self.poses, self.intrinsics,
+                    self.H, self.W, k2, log=self.log)
+                self._bucket_plan = (k2, k2s, n_short)
+            _, k2s, n_short = self._bucket_plan
+            bs = bucket_short_budget(n_short, budget, gran) if k2s else 0
+            if bs:
+                bucket = (k2s, bs)
+        eval_budget = 0
+        if cfg.infer_eval_frac > 0:
+            eval_budget = min(budget, self._eval_override or max(
+                gran, int(budget * cfg.infer_eval_frac) // gran * gran))
+        self.budget = budget
+        self.bucket = bucket
+        self.long_budget = budget - bucket[1] if bucket else 0
+        self.eval_budget = eval_budget
+        self.stage2_budget = (
+            min(self._stage2_override, budget) if self._stage2_override
+            else max(1024, int(budget * cfg.infer_stage2_frac) // 1024 * 1024))
+        self._plan_line(t0, f"from the Config over {len(self.poses)} poses")
+
+    # -- audio ---------------------------------------------------------------
+
+    def set_audio_features(self, feats: np.ndarray) -> int:
+        """Inject novel audio features directly; returns the number of
+        video frames they drive. Resets the smooth-lips carry."""
+        if not self._built:
+            raise RuntimeError("load_model first")
+        self.ds.aud_features = np.asarray(feats, np.float32)
+        self.ds.aud_offset = 0
+        self._carry = False
+        return len(self.ds.aud_features)
+
+    # -- streaming loop ------------------------------------------------------
+
+    def run(self, sink: Optional[FrameSink] = None,
+            max_frames: Optional[int] = None,
+            on_frame: Optional[Callable[[int, np.ndarray], None]] = None,
+            profile: bool = False,
+            start: int = 0, close_sink: bool = True):
+        """Render all frames driven by the current audio features, pushing
+        each frame's bytes into `sink` in the sink's pix_fmt ("yuv420p" or
+        "rgb24") and calling on_frame(index, frame bytes) in order.
+        Returns (num_frames, wall_seconds). profile=True logs the host
+        phases' wall time every 25 chunks and at the end.
+
+        start/close_sink are the incremental hooks run_live builds on:
+        frames [start, max_frames) render with the chunk lattice anchored
+        at `start`, and the sink is left open for the next segment. The
+        sink is closed when the run fails."""
+        if not self._built:
+            raise RuntimeError("load_model first")
+        acc = PhaseAccumulator() if profile else None
+        sink = sink or NullSink()
+        ds, cfg = self.ds, self.cfg
+        # absolute frame count: a live-trimmed feature buffer carries its
+        # start index in ds.aud_offset (provider.audio_window)
+        n = (ds.aud_offset + len(ds.aud_features)
+             if ds.aud_features is not None else 2 * ds.num_frames)
+        if max_frames is not None:
+            n = min(n, max_frames)
+        t0 = time.time()
+        fmt = getattr(sink, "pix_fmt", "rgb24")
+        self.chunk = self._chunk_size()
+        if not self._carry:
+            self.reset_audio()
+        use_graph = (self.device.type == "cuda" if self.graph is None
+                     else self.graph)
+
+        def frame_inputs(i):
+            fi = ds.mirror_index(i)
+            eye = cfg.fix_eye if cfg.fix_eye >= 0 else ds.eye_area[fi]
+            return fi, eye, ds.audio_window(i)
+
+        def emit(base, count, bufs, cnt):
+            for j in range(count):
+                frame = bufs[j].copy()
+                sink.push(frame.tobytes())
+                if on_frame:
+                    on_frame(base + j, frame)
+
+        try:
+            self._stream(start, n, frame_inputs, emit, fmt, use_graph, acc)
+        except BaseException:
+            # the sink must not outlive a failed run: an abandoned ffmpeg
+            # leaks its pump fd and leaves an 'event' playlist without
+            # EXT-X-ENDLIST that players stall on forever. run_live owns
+            # the sink when close_sink=False and closes it in its handler.
+            if close_sink:
+                try:
+                    sink.close()
+                except Exception as e:
+                    self.log(f"[WARN] closing the sink after a failed run: "
+                             f"{type(e).__name__}: {e}")
+            raise
+        self._carry = cfg.smooth_lips
+        dt = time.time() - t0
+        if close_sink:
+            sink.close()
+        if acc:
+            self.log(f"[profile] total {n - start} frames, {dt:.2f}s: "
+                     f"{acc.report()}")
+        return n - start, dt
+
+    def _chunk_size(self) -> int:
+        """The render chunk size (one definition: run() and run_live()
+        must agree, or run_live's mid-stream segments leave the chunk
+        lattice and lose their byte-equality with run())."""
+        return max(1, self.cfg.infer_chunk)
+
+    def run_live(self, feature_stream, sink: Optional[FrameSink] = None,
+                 on_frame: Optional[Callable[[int, np.ndarray], None]] = None):
+        """Live serving loop: consume audio features as they arrive and
+        render incrementally.
+
+        `feature_stream` yields [k, ...] arrays of per-video-frame features
+        (any k >= 0). A frame renders once its attention window's right
+        context is buffered (att mode 2 looks 3 frames ahead); the stream
+        tail flushes with the same end-of-sequence zero padding as the
+        offline path, so the frames are byte-identical to one run() over
+        the concatenated features. The smooth-lips EMA is reset at the
+        stream's start and carries across its segments, and the chunk
+        lattice stays anchored at frame 0, so drip sizes never change the
+        output. Features are managed internally (set_audio_features would
+        reset the carried EMA). The sink is closed at the end, also on
+        failure. Returns (frames, wall_seconds)."""
+        if not self._built:
+            raise RuntimeError("load_model first")
+        cfg = self.cfg
+        sink = sink or NullSink()
+        # a live stream is a fresh utterance
+        self._carry = False
+        # right context of the attention window (utils/audio.py offsets)
+        lookahead = 3 if cfg.att == 2 else 0
+        lookbehind = 8   # widest left reach across att modes 1/2
+        C = self._chunk_size()
+        buf = None
+        offset = 0       # absolute frame index of buf[0] (buffer trimming)
+        next_i = 0
+        t0 = time.time()
+
+        def set_window(b, off):
+            self.ds.aud_features = b
+            self.ds.aud_offset = off
+
+        try:
+            for feats in feature_stream:
+                feats = np.asarray(feats, np.float32)
+                if len(feats) == 0:
+                    continue
+                buf = (feats if buf is None
+                       else np.concatenate([buf, feats], 0))
+                set_window(buf, offset)
+                ready = offset + len(buf) - lookahead
+                if ready - next_i >= C:
+                    # whole chunks only: keeps the chunk lattice aligned
+                    # with the offline run()'s [0,C),[C,2C),... so no tail
+                    # padding (and no EMA mask interplay) mid-stream
+                    end = next_i + ((ready - next_i) // C) * C
+                    self.run(sink, start=next_i, max_frames=end,
+                             close_sink=False, on_frame=on_frame)
+                    next_i = end
+                # bound the buffer for hours-long sessions: frames below
+                # next_i - lookbehind can never be windowed again
+                keep_from = max(0, next_i - lookbehind)
+                if keep_from - offset >= self._live_trim_stride:
+                    buf = buf[keep_from - offset:]
+                    offset = keep_from
+            total = offset + (len(buf) if buf is not None else 0)
+            if buf is not None and next_i < total:
+                # stream over: the lookahead frames render with the real
+                # end-of-sequence zero padding, exactly like offline
+                set_window(buf, offset)
+                self.run(sink, start=next_i, max_frames=total,
+                         close_sink=False, on_frame=on_frame)
+                next_i = total
+        finally:
+            # restore absolute indexing for any later offline use, and
+            # always close the sink
+            self.ds.aud_offset = 0
+            sink.close()
+        return next_i, time.time() - t0
+

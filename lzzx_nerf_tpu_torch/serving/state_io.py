@@ -84,16 +84,18 @@ def flatten_paths(tree: Dict[str, Any], prefix: str = ""
 
 
 def load_trained_state(path: str) -> Dict[str, Any]:
-    """-> {"head": params tree, "torso": params tree, "occ": {name: array},
+    """-> {"head": params tree, "torso": params tree or None (a state with
+    no "torso_leaves": a head-only identity), "occ": {name: array},
     "meta": dict}; every leaf a numpy array. Imports no JAX."""
     with open(path, "rb") as f:
         st = _StateUnpickler(f).load()
-    leaves = st["torso_leaves"]
-    if len(leaves) != len(TORSO_LEAF_PATHS):
+    leaves = st.get("torso_leaves")
+    if leaves is not None and len(leaves) != len(TORSO_LEAF_PATHS):
         raise ValueError(f"{path}: {len(leaves)} torso leaves, expected "
                          f"{len(TORSO_LEAF_PATHS)}")
     return {"head": st["head_ema"],
-            "torso": _nest(TORSO_LEAF_PATHS, leaves),
+            "torso": (None if leaves is None
+                      else _nest(TORSO_LEAF_PATHS, leaves)),
             "occ": {k: np.asarray(v) for k, v in st["occ"].items()},
             "meta": st["meta"]}
 

@@ -40,3 +40,11 @@ def get_audio_features(features: np.ndarray, att_mode: int,
     win = features[np.clip(idx, 0, F - 1)]
     shape = (8,) + (1,) * (features.ndim - 1)
     return win * valid.astype(features.dtype).reshape(shape)
+
+
+def get_audio_features_np(features: np.ndarray, att_mode: int,
+                          index: int) -> np.ndarray:
+    """The data loader's window: get_audio_features with `index` clamped
+    to the last frame (the JAX package's host-side twin)."""
+    return get_audio_features(features, att_mode,
+                              min(int(index), features.shape[0] - 1))
