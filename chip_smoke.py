@@ -92,6 +92,29 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      offline bytes, and a live /api/audio_chunk ... /api/audio_end stream
      of .npy segments the same bytes; both kernels launch in each; the
      wall time of the 64 frames through HTTP.
+ 17. fallback: the serving fallbacks, each through an InferenceSession
+     with the Config's defaults and one override (FALLBACK_PATHS) over
+     the trained state's 512² identity: the group-1 march, per-ray
+     windows (infer_block 1, render_rays_compact), the single-pass
+     composite (infer_stage_split 0), a 511² identity into a
+     yuv420p-requested sink (the compact path; the sink flips to rgb24),
+     and bound 2 (cascade 2, render_rays over a seeded field with every
+     cell occupied); the production nb5w path first, for comparison.
+     For each: the plan settles, one eager chunk with every kernel launch
+     held to its plain version, frame 0 through the kernels against the
+     plain versions (FRAME_TOL), the captured run's launch counts (set to
+     0 just before, read just after: the field kernel on every path, the
+     select only on the group-2 block paths) and frames/s;
+ 18. cli: the synthetic oracle as a 512² disk dataset
+     (tools/dataset.py); `python -m lzzx_nerf_tpu_torch.cli` trains the
+     head at the Config's width (grid 128, S 16, 65,536 rays; CLI_HEAD
+     iterations, resumed once from its checkpoint, compacted from
+     CLI_WARMUP), the lips finetune with --allow_rand_lpips and the torso
+     stage, each a process of its own (steps/s, eval PSNR, which must
+     rise); --test --torso in this process with every kernel launch held
+     and the launches counted, then timed (frames/s); an InferenceSession
+     serves the CLI's workspace (its newest checkpoint and _torso) with
+     both kernels launching.
 Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
 line.
 """
@@ -100,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import re
@@ -1144,6 +1168,338 @@ def webapi_phase(dev, root: str, live: dict, smi: str) -> tuple:
     return ok, lines
 
 
+# the fallback render paths of [fallback]: (name, Config overrides, the
+# identity it serves) over FALLBACK_FRAMES seeded frames; "nb5w" is the
+# production block path, the one the others are compared with
+FALLBACK_PATHS = (
+    ("nb5w", {}, "identity"),
+    ("group 1", {"infer_march_group": 1}, "identity"),
+    ("infer_block 1", {"infer_block": 1}, "identity"),
+    ("stage_split 0", {"infer_stage_split": 0}, "identity"),
+    ("odd 511", {}, "odd"),
+    ("bound 2", {"bound": 2.0}, "bound2"),
+)
+FALLBACK_FRAMES = 32
+# the CLI's stages at the production width (512², grid 128, S 16, 65,536
+# rays; the oracle's 32 frames): head iterations of the first run and of
+# the resumed one (compacted from CLI_WARMUP on), the lips finetune's end
+# and the torso stage's iterations (the recipe's 100,000 / 125,000 /
+# 200,000, cut to fit the smoke run)
+CLI_HEAD = (128, 256)
+CLI_WARMUP = 128
+CLI_LIPS = 320
+CLI_TORSO = 96
+
+
+class _YuvNull:
+    """A sink that asks for yuv420p and keeps the bytes it is given."""
+
+    def __init__(self):
+        self.pix_fmt = "yuv420p"
+        self.frames = []
+
+    def push(self, b):
+        self.frames.append(b)
+
+    def close(self):
+        pass
+
+
+def _bound2_workspace(root: str, data: str, dev) -> str:
+    """A workspace of the port's CLI at bound 2 (cascade 2) over the
+    dataset at `data`: a seeded head field, every cell occupied."""
+    import torch
+
+    from lzzx_nerf_tpu_torch import cli
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.data.provider import NeRFDataset
+    from lzzx_nerf_tpu_torch.train.optim import HeadOptimizer
+    from lzzx_nerf_tpu_torch.train.trainer import Trainer, TrainState
+
+    ws = os.path.join(root, "trial_bound2")
+    cfg = Config(path=data, workspace=ws, asr_model="deepspeech", bound=2.0)
+    ds = NeRFDataset(cfg)
+    _, occ, field = cli._build_world(cfg, ds, dev)
+    occ = occ._replace(occ=torch.ones_like(occ.occ))
+    state = TrainState.create(field, HeadOptimizer(field.named_parameters()))
+    Trainer(ws).save_checkpoint(state, occ)
+    with open(os.path.join(ws, "opt.txt"), "w") as f:
+        f.write(cfg.to_json(indent=None) + "\n")
+    return ws
+
+
+def fallback_phase(dev, root: str, smi: str, res=None, n_poses=None,
+                   frames: int = FALLBACK_FRAMES) -> tuple:
+    """[fallback]: each render path of FALLBACK_PATHS served by an
+    InferenceSession: one eager chunk with every kernel launch held to
+    its plain version, frame 0 through the kernels against the plain
+    versions (FRAME_TOL), the captured run's launch counts (set to 0 just
+    before, read just after) and frames/s over `frames` frames -> (ok,
+    report lines). res / n_poses: the identities at another size (the
+    odd one a pixel less), for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink
+    from lzzx_nerf_tpu_torch.tools.identity import write_identity
+
+    lines = []
+    idents = {"identity": write_identity(root, model="fb", res=res,
+                                         n_poses=n_poses, seed=0),
+              "odd": write_identity(root, model="odd",
+                                    res=(res or 512) - 1, n_poses=n_poses,
+                                    seed=0)}
+    idents["bound2"] = dict(idents["identity"], workspace=_bound2_workspace(
+        root, idents["identity"]["data"], dev))
+    feats = np.random.default_rng(11).standard_normal(
+        (frames, 16, 29)).astype(np.float32)
+    ok = True
+    fps = {}
+    for name, kw, which in FALLBACK_PATHS:
+        t0 = time.perf_counter()
+        ident = idents[which]
+        plan_lines = []
+        cfg = Config(asr_model="deepspeech", bg_img=ident["bg_img"], **kw)
+        sess = InferenceSession(cfg, device=dev, log=plan_lines.append)
+        sess.load_model(ident["data"], ident["workspace"])
+        # the escapes settle the Config's plan on these frames
+        settled = False
+        for _ in range(4):
+            r0 = sess.rebuilds
+            sess.set_audio_features(feats)
+            sess.run(NullSink())
+            if sess.rebuilds == r0 and not sess.rebuild_pending():
+                settled = True
+                break
+        # one eager chunk, every kernel launch held
+        field_checks, select_checks = [], []
+        sess.graph = False
+        sink = _YuvNull()
+        with kernels_held(field_checks, select_checks):
+            sess.set_audio_features(feats[:sess.chunk])
+            sess.run(sink)
+        sess.graph = None
+        f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+        blocks2 = sess.path == "blocks" and sess.march_group == 2
+        s_ok = all(e for _, e, _ in select_checks) and (
+            bool(select_checks) == blocks2)
+        fmt = sink.pix_fmt
+        nbytes = sess.H * sess.W * (3 if fmt == "rgb24" else 1.5)
+        sizes_ok = all(len(b) == nbytes for b in sink.frames)
+        # frame 0 through the kernels and through the plain versions
+        with torch.no_grad():
+            enc = sess.field.encode_audio(torch.as_tensor(
+                sess.ds.audio_window(0), device=dev))
+            eye = torch.tensor([float(sess.ds.eye_area[0])], device=dev)
+            img_k = sess.render_frame(0, enc, eye, fmt="rgb24")["image"]
+            img_p = sess.render_frame(0, enc, eye, use_kernels=False,
+                                      fmt="rgb24")["image"]
+        d_frame = float((img_k - img_p).abs().max())
+        fin = bool(torch.isfinite(img_k).all())
+        # the captured run: launch counts and frames/s
+        sess.set_audio_features(feats)
+        sess.run(_YuvNull())                     # capture, warm up
+        sess.set_audio_features(feats)
+        kernels.reset_launches()
+        out = _YuvNull()
+        n, dt = sess.run(out)
+        torch_sync(dev)
+        launches = dict(kernels.launches)
+        launched = launches["fused_field"] > 0 and (
+            (launches["march_select"] > 0) == blocks2)
+        fps[name] = n / dt
+        p_ok = (f_ok and s_ok and sizes_ok and fin and d_frame <= FRAME_TOL
+                and launched and settled and n == frames
+                and len(out.frames) == n and out.pix_fmt == fmt)
+        ok &= p_ok
+        info = [m for m in plan_lines if "[INFO]" in m]
+
+        def max_share(key):
+            return max((e[key] for _, e in field_checks), default=0)
+
+        lines.append(
+            f"[fallback] {name}: {sess.H}x{sess.W} {sess.path} path, march "
+            f"plan {sess.march_plan}, cascade {sess.settings.cascade}, "
+            f"sink {fmt}; K2={sess.k2} budget={sess.budget} eval="
+            f"{sess.eval_budget} stage2={sess.stage2_budget} after "
+            f"{sess.rebuilds} rebuild(s), settled {settled}; eager chunk: "
+            f"field within FIELD_TOL at "
+            f"{sum(e['ok'] for _, e in field_checks)} of {len(field_checks)}"
+            f" launches (N {sorted({m for m, _ in field_checks})}, max "
+            f"share of tol colour "
+            f"{max_share('color_share'):.3f}, sigma "
+            f"{max_share('sigma_share'):.3f}), select equal at "
+            f"{sum(e for _, e, _ in select_checks)} of "
+            f"{len(select_checks)}; frame 0 kernels vs plain max abs "
+            f"{d_frame:.3g} (tol {FRAME_TOL}); captured run {n} frames: "
+            f"{fps[name]:.2f} frames/s, launches {launches} [{smi}] "
+            f"{'OK' if p_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+        lines += [f"[fallback]   {m}" for m in info]
+        del sess
+        torch.cuda.empty_cache()
+    base = fps.get("nb5w")
+    lines.append("[fallback] frames/s against the nb5w block path "
+                 f"({base:.2f}): " + ", ".join(
+                     f"{k} {v / base:.3f}" for k, v in fps.items()
+                     if k != "nb5w") + f" [{smi}]")
+    return ok, lines
+
+
+def _cli(args: list) -> tuple:
+    """python -m lzzx_nerf_tpu_torch.cli args -> (rc, seconds, output)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lzzx_nerf_tpu_torch.cli",
+                        *args], capture_output=True, text=True,
+                       timeout=600)
+    return r.returncode, time.perf_counter() - t0, r.stdout + r.stderr
+
+
+def cli_phase(dev, root: str, smi: str, res: int = 512,
+              extra: tuple = ()) -> tuple:
+    """[cli]: the oracle written as a 512² dataset
+    (tools/dataset.py); the CLI's head stage (CLI_HEAD[0] iterations,
+    then resumed to CLI_HEAD[1], compacted from CLI_WARMUP on), the lips
+    finetune to CLI_LIPS and the torso stage (CLI_TORSO) as `python -m
+    lzzx_nerf_tpu_torch.cli` processes; --test --torso in this process
+    twice, once with every kernel launch held to its plain version and
+    the launch counts read, once timed; then an InferenceSession serves
+    the CLI's workspace -> (ok, report lines). res / extra (more CLI
+    flags, e.g. --device cpu --grid_size 32): a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import cli, kernels
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.tools.dataset import write_synthetic_dataset
+
+    lines = []
+    t0 = time.perf_counter()
+    data = write_synthetic_dataset(os.path.join(root, "oracle"), res=res,
+                                   frames=32, val=2)["data"]
+    ws = os.path.join(root, "trial_oracle")
+    base = [data, "--workspace", ws, "--asr_model", "deepspeech",
+            "--eval_interval", "2", "--ema_decay", "0.5",
+            "--ema_update_interval", "10", "--train_compact_warmup",
+            str(CLI_WARMUP), "--preload", "1", "--budget_frac", "0.75",
+            *extra]
+    lines.append(f"[cli] oracle dataset at {res}², 32 frames "
+                 f"({time.perf_counter() - t0:.1f} s)")
+    stages = [
+        ("head", base + ["--iters", str(CLI_HEAD[0])], CLI_HEAD[0]),
+        ("head resumed", base + ["--iters", str(CLI_HEAD[1])],
+         CLI_HEAD[1] - CLI_HEAD[0]),
+        ("lips", base + ["--iters", str(CLI_LIPS), "--finetune_lips", "1",
+                         "--allow_rand_lpips", "1"], CLI_LIPS - CLI_HEAD[1]),
+        ("torso", base + ["--torso", "1", "--workspace", ws + "_torso",
+                          "--iters", str(CLI_TORSO)], CLI_TORSO)]
+    ok = True
+    for name, args, steps in stages:
+        rc, sec, out = _cli(args)
+        its = re.findall(r"\(([0-9.]+) it/s\)", out)
+        evals = re.findall(r"\[eval\] epoch \d+: PSNR = ([0-9.]+)", out)
+        s_ok = rc == 0 and ("training done" in out)
+        if name == "head resumed":
+            s_ok &= f"resumed at step {CLI_HEAD[0]}" in out
+        ok &= s_ok
+        lines.append(
+            f"[cli] {name}: rc {rc}, {steps} steps in {sec:.1f} s wall "
+            f"({steps / sec:.2f} steps/s with process start, data load and "
+            f"evals); logged rate {its} it/s; eval PSNR {evals} "
+            f"{'OK' if s_ok else 'FAIL'}")
+        if not s_ok:
+            lines += [f"[cli]   {ln}" for ln in out.splitlines()[-15:]]
+    with open(os.path.join(ws, "log_ngp.txt")) as f:
+        log_text = f.read()
+    head_evals = [float(v) for v in re.findall(
+        r"\[eval\] epoch \d+: PSNR = ([0-9.]+)", log_text)]
+    rise = len(head_evals) >= 2 and head_evals[-1] > head_evals[0]
+    ok &= rise
+    lines.append(f"[cli] eval PSNR over the head and lips stages "
+                 f"{head_evals}: first {head_evals[0] if head_evals else None}"
+                 f", last {head_evals[-1] if head_evals else None} "
+                 f"{'rises OK' if rise else 'FAIL'}")
+
+    # --test --torso: every kernel launch held, launch counts; then timed
+    test = base + ["--test", "1", "--test_train", "1", "--torso", "1"]
+    field_checks, select_checks = [], []
+    kernels.reset_launches()
+    with kernels_held(field_checks, select_checks):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(test)
+    torch_sync(dev)
+    held = dict(kernels.launches)
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(test)
+    torch_sync(dev)
+    t_test = time.perf_counter() - t1
+    out = buf.getvalue()
+    f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+    s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
+    launched = all(v > 0 for v in held.values())
+    fps = re.findall(r"rendered (\d+) frames at ([0-9.]+) FPS", out)
+    metric = re.findall(r"\[metric\] (.*)", out)
+    pngs = [f for f in os.listdir(os.path.join(ws, "results"))
+            if f.endswith(".png")]
+    plan = [ln for ln in out.splitlines() if ln.startswith((
+        "[INFO] traj", "[INFO] adapt", "[INFO] block", "[INFO] bucket",
+        "[WARN]"))]
+    t_ok = f_ok and s_ok and launched and len(pngs) == 32 and bool(fps)
+    ok &= t_ok
+    lines.append(
+        f"[cli] --test --torso: {len(pngs)} PNGs; held run: field within "
+        f"FIELD_TOL at {sum(e['ok'] for _, e in field_checks)} of "
+        f"{len(field_checks)} launches (max share of tol colour "
+        f"{max((e['color_share'] for _, e in field_checks), default=0):.3f}"
+        f"), select equal at {sum(e for _, e, _ in select_checks)} of "
+        f"{len(select_checks)}, launches {held}; timed run "
+        f"{fps} frames at FPS ({t_test:.1f} s with set-up); {metric}; plan "
+        f"{plan} "
+        f"[{smi}] {'OK' if t_ok else 'FAIL'}")
+
+    # the CLI's workspace served
+    t1 = time.perf_counter()
+    sess_lines = []
+    sess = InferenceSession(cli.build_config(base), device=dev,
+                            log=sess_lines.append)
+    sess.load_model(data, ws)
+    feats = np.load(os.path.join(data, "aud_ds.npy"))
+    for _ in range(4):
+        r0 = sess.rebuilds
+        sess.set_audio_features(feats)
+        sess.run()
+        if sess.rebuilds == r0 and not sess.rebuild_pending():
+            break
+    sess.set_audio_features(feats)
+    kernels.reset_launches()
+    got = {}
+    n, dt = sess.run(on_frame=lambda i, b: got.__setitem__(i, b))
+    torch_sync(dev)
+    launches = dict(kernels.launches)
+    frame0 = got[0].reshape(sess.H, sess.W, 3).astype(np.float32) / 255.0
+    gt0 = sess.ds.frame(0)["image"]
+    psnr0 = float(-10 * np.log10(max(np.mean((frame0 - gt0) ** 2), 1e-12)))
+    v_ok = (n == len(feats) and all(v > 0 for v in launches.values())
+            and sess.torso is not None)
+    ok &= v_ok
+    lines.append(
+        f"[cli] InferenceSession over the CLI's workspace (newest "
+        f"checkpoint + {os.path.basename(ws)}_torso): {n} frames, "
+        f"{n / dt:.2f} frames/s, launches {launches}, torso "
+        f"{sess.torso is not None}, plan {sess.march_plan} K2={sess.k2} "
+        f"budget={sess.budget}, frame 0 PSNR against the oracle "
+        f"{psnr0:.2f} dB [{smi}] {'OK' if v_ok else 'FAIL'} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    del sess
+    torch.cuda.empty_cache()
+    return ok, lines
+
+
 def _syncs(fn) -> list:
     """The host synchronisations fn makes (torch's sync debug mode), as
     the file:line of the Python call that made each."""
@@ -1697,6 +2053,14 @@ def main() -> int:
         ok &= w_ok
         log(f"[webapi] {'OK' if w_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
+        for name, fn in (("fallback", fallback_phase), ("cli", cli_phase)):
+            t0 = time.perf_counter()
+            p_ok, lines = fn(dev, root, smi)
+            for line in lines:
+                log(line)
+            ok &= p_ok
+            log(f"[{name}] {'OK' if p_ok else 'FAIL'} "
+                f"({time.perf_counter() - t0:.1f} s)")
 
     # per frame: both field launches (stage 1, stage 2) and both select
     # launches (short, long bucket) of the first frame, summed

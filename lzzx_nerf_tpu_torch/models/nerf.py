@@ -50,7 +50,10 @@ class FieldOutputs(NamedTuple):
 class NeRFField(nn.Module):
     def __init__(self, bound: float = 1.0, audio_in_dim: int = 1024,
                  audio_dim: int = 32, att: int = 2, ind_dim: int = 4,
-                 ind_num: int = 10_000):
+                 ind_num: int = 10_000, camera_frames: int = 0):
+        """camera_frames > 0: the learned per-frame pose refinement
+        (train_camera) as parameters camera_dR (Euler degrees) and
+        camera_dT [camera_frames, 3], zero at initialisation."""
         super().__init__()
         self.bound = bound
         self.audio_dim = audio_dim
@@ -77,6 +80,9 @@ class NeRFField(nn.Module):
         if ind_dim > 0:
             self.individual_codes = nn.Parameter(
                 torch.zeros(ind_num, ind_dim))
+        if camera_frames > 0:
+            self.camera_dR = nn.Parameter(torch.zeros(camera_frames, 3))
+            self.camera_dT = nn.Parameter(torch.zeros(camera_frames, 3))
 
     def plane_levels(self, p: str):
         return [getattr(self, f"encoder_{p}_l{lvl}")
@@ -174,6 +180,8 @@ class NeRFField(nn.Module):
         ±1/sqrt(shape[0]) of the flax kernel: its fan-in for a Dense,
         the kernel width 3 for a Conv), biases zero. Returns self."""
         for name, p in self.named_parameters():
+            if name in ("camera_dR", "camera_dT"):
+                continue
             if name.startswith("encoder_"):
                 bound = 1e-4
             elif name == "individual_codes":

@@ -1,12 +1,16 @@
 """Interval-guided, ray-compacted block march — the serving subset of
-lzzx_nerf_tpu/ops/march2.py (variants nb5w / nb5wp with the prepass).
+lzzx_nerf_tpu/ops/march2.py (variants nb5w / nb5wp with the prepass, and
+the per-ray exact neighbourhood march of group 1).
 
-Occupancy tables are built once per model load (build_inference_tables);
+Occupancy tables are built once per model load (build_inference_tables,
+then ensure_variant_tables for the one the resolved plan marches with);
 per frame the renderer intersects 2x2-pixel blocks with the column z-slabs
 (ray_windows), drops blocks the dilated-occupancy prepass proves dead
 (prepass_block_hits), compacts the rest into a fixed budget (compact_rays)
-and marches them (march_rays_window_bitmask_nb_block). The host planners
-size the candidate count K2 and check the block march's drift envelope
+and marches them (march_rays_window_bitmask_nb_block; group 1 and the
+per-ray compact render march each ray with march_rays_window_bitmask_nb).
+The host planners size the candidate count K2 and step the block march
+down to the per-ray march outside its drift envelope
 (resolve_march_plan), plan the short/long bucket march
 (measure_bucket_plan, bucket_short_budget) and count the blocks the eval
 re-compaction keeps (measure_real_blocks_host). The training step marches
@@ -23,7 +27,7 @@ This path assumes cascade == 1 (bound <= 1), like the JAX fast path.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,13 +45,16 @@ class RayWindow(NamedTuple):
 
 
 class InferenceTables(NamedTuple):
-    """Occupancy products the nb5w/nb5wp block march with prepass needs
-    (needed_variant_tables(2, "nb5wp", prepass=True) in the JAX package)."""
+    """Occupancy products of the serving marches: the column intervals
+    always, and the bit tables a plan needs (needed_variant_tables): the
+    nb5w table and the dilated words of the group-2 block march with
+    prepass, the 3x3-neighbourhood table of the per-ray march."""
 
-    z_lo: torch.Tensor          # [H, H] per-column window lower bound
-    z_hi: torch.Tensor          # [H, H] upper bound
-    col_nb5wmask: torch.Tensor  # [H*H*(H//32), 50] int32 (uint32 bits)
-    col_dilwords: torch.Tensor  # [H*H*(H//32)] int32 (uint32 bits)
+    z_lo: torch.Tensor                            # [H, H] window lower bound
+    z_hi: torch.Tensor                            # [H, H] upper bound
+    col_nb5wmask: Optional[torch.Tensor] = None   # [H*H*(H//32), 50] int32
+    col_dilwords: Optional[torch.Tensor] = None   # [H*H*(H//32)] int32
+    col_nbmask: Optional[torch.Tensor] = None     # [H*H, 9*(H//32)] int32
 
 
 class CompactSet(NamedTuple):
@@ -161,6 +168,21 @@ def _pack_z_words(grid: torch.Tensor) -> torch.Tensor:
     return _as_int32_bits(torch.sum(bits << shifts, dim=-1))
 
 
+def column_bitmasks_neighborhood(occ: torch.Tensor) -> torch.Tensor:
+    """occ [CAS, H, H, H] -> [H*H, 9*(H//32)]: for each (x, y) cell the
+    exact z-words of its 3x3 neighbourhood, in blocks of H//32 words
+    ordered (dx+1)*3 + (dy+1) (out-of-grid columns read as 0)."""
+    H = occ.shape[1]
+    if H % 32:
+        raise ValueError("grid size must be a multiple of 32")
+    words = _pack_z_words(occ[0])                           # [H, H, W32]
+    padded = F.pad(words, (0, 0, 1, 1, 1, 1))
+    blocks = [padded[1 + dx:1 + dx + H, 1 + dy:1 + dy + H]
+              for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+    return torch.cat(blocks, dim=-1).reshape(H * H, 9 * (H // 32)
+                                              ).contiguous()
+
+
 def column_bitmasks_neighborhood5_words(occ: torch.Tensor) -> torch.Tensor:
     """occ [CAS, H, H, H] -> [H*H*(H//32), 50]: row (x*H + y)*W32 + w0,
     field nb*2 + i = the z-word w0+i of neighbour nb = (dx+2)*5 + (dy+2)
@@ -192,13 +214,48 @@ def dilated_occupancy_words(occ: torch.Tensor, dxy: int = 2, dz: int = 3
 
 
 def build_inference_tables(occ: torch.Tensor, bound: float,
-                           dilate_intervals: int = 2) -> InferenceTables:
-    """The tables of the nb5w/nb5wp block march with prepass."""
+                           dilate_intervals: int = 2,
+                           variants: Tuple[str, ...] = ("nb5w", "dil")
+                           ) -> InferenceTables:
+    """The column intervals and the bit tables named in `variants`
+    ("nb5w", "dil", "nb"); the default builds those of the nb5w/nb5wp
+    block march with prepass."""
     z_lo, z_hi = column_intervals(occ, bound, dilate=dilate_intervals)
-    return InferenceTables(
-        z_lo=z_lo, z_hi=z_hi,
-        col_nb5wmask=column_bitmasks_neighborhood5_words(occ),
-        col_dilwords=dilated_occupancy_words(occ))
+    return ensure_variant_tables(InferenceTables(z_lo=z_lo, z_hi=z_hi), occ,
+                                 variants)
+
+
+def needed_variant_tables(march_group: int, march_variant: str,
+                          prepass: bool = False) -> Tuple[str, ...]:
+    """The bit tables a resolved plan marches with: the nb5w table (and
+    with the prepass the dilated words) for the group-2 block march, the
+    3x3-neighbourhood table for group 1 and the per-ray compact render.
+    The JAX package builds its 3x3 table with every plan; here it is built
+    when a plan needs it."""
+    if march_group == 2:
+        if march_variant not in ("nb5w", "nb5wp"):
+            raise NotImplementedError(
+                f"march variant {march_variant!r} is not ported "
+                "(ROADMAP Queue 1 item 8)")
+        return ("nb5w",) + (("dil",) if prepass else ())
+    if march_group == 1:
+        return ("nb",)
+    raise NotImplementedError(f"march group {march_group} is not ported "
+                              "(ROADMAP Queue 1 item 8)")
+
+
+def ensure_variant_tables(tables: InferenceTables, occ: torch.Tensor,
+                          need: Tuple[str, ...]) -> InferenceTables:
+    """Build the tables in `need` that `tables` lacks."""
+    make = {"nb5w": ("col_nb5wmask", column_bitmasks_neighborhood5_words),
+            "dil": ("col_dilwords", dilated_occupancy_words),
+            "nb": ("col_nbmask", column_bitmasks_neighborhood)}
+    upd = {}
+    for v in need:
+        field, fn = make[v]
+        if getattr(tables, field) is None:
+            upd[field] = fn(occ)
+    return tables._replace(**upd) if upd else tables
 
 
 def _prepass_group_hits(o_blk, d_center, t0_blk, t1_blk, col_dilwords,
@@ -301,6 +358,75 @@ def march_rays_window(rays_o, rays_d, t_start, t_end, slot_valid,
     return _lattice_samples(rays_o, rays_d, t0, sel_k, mask, bound, dt)
 
 
+def march_rays_window_bitmask_nb(rays_o, rays_d, t_start, t_end, slot_valid,
+                                 col_nbmask: torch.Tensor, bound: float,
+                                 dt: float, num_cand: int, max_samples: int,
+                                 noise=None, nears=None) -> MarchResult:
+    """The per-ray exact march over the 3x3-neighbourhood table: one
+    table row per 2-candidate group, fetched at the group's midpoint
+    (lattice position 2g + 0.5), serves both candidates, each reading its
+    own column's z-bit from the row (its xy cell lies within ±1 of the
+    fetch cell while (dt/2) x cells-per-world <= 1, checked here). The
+    sample set equals march_rays_window's, as in the JAX package.
+
+    noise/nears: march_rays_window's training lattice (candidates at
+    nears + (k + noise) * dt, started one step before the snapped
+    t_start, pre-floor candidates masked); the fetch points ride the same
+    shifted lattice."""
+    B = rays_o.shape[0]
+    W32 = col_nbmask.shape[1] // 9
+    H = W32 * 32
+    if col_nbmask.shape != (H * H, 9 * W32):
+        raise ValueError("col_nbmask is not an [H*H, 9*(H//32)] table")
+    if noise is None:
+        t0 = t_start
+        floor_t = None
+    else:
+        if nears is None:
+            raise ValueError("noise marching needs `nears` for the lattice "
+                             "floor")
+        t0 = t_start + dt * (noise - 1.0)
+        floor_t = nears + dt * noise - 1e-4 * dt
+    drift_cells = (dt / 2.0) * H / (2.0 * bound)
+    if drift_cells > 1.0 + 1e-6:
+        raise ValueError(
+            f"nb-march drift {drift_cells:.2f} cells exceeds the ±1 "
+            f"neighborhood (dt={dt:.4f}, bound={bound}); use "
+            "march_rays_window for this geometry")
+    if max_samples > num_cand:
+        raise ValueError(
+            f"max_samples ({max_samples}) cannot exceed window candidates "
+            f"({num_cand})")
+    G = (num_cand + 1) // 2
+    dev = rays_o.device
+    kg = (torch.arange(G, device=dev, dtype=torch.float32)[:, None] * 2
+          + torch.arange(2, device=dev, dtype=torch.float32)[None, :])
+    t_cand = t0[:, None, None] + kg[None] * dt                 # [B, G, 2]
+    gk = torch.arange(G, device=dev, dtype=torch.float32) * 2 + 0.5
+    t_g = t0[:, None] + gk[None] * dt                          # [B, G]
+    pg = torch.clamp(rays_o[:, None, :] + t_g[..., None] * rays_d[:, None, :],
+                     -bound, bound)
+    q = (pg / bound + 1.0) * 0.5 * H
+    gx = torch.clamp(q[..., 0], 0, H - 1).to(torch.int64)
+    gy = torch.clamp(q[..., 1], 0, H - 1).to(torch.int64)
+    gp = _cells(rays_o[:, None, None, :]
+                + t_cand[..., None] * rays_d[:, None, None, :], bound, H)
+    cx, cy, cz = gp[..., 0], gp[..., 1], gp[..., 2]            # [B, G, 2]
+    nb = ((torch.clamp(cx - gx[..., None], -1, 1) + 1) * 3
+          + torch.clamp(cy - gy[..., None], -1, 1) + 1)
+    # the candidate's word of its own column in the fetched row
+    row = (gx * H + gy)[..., None]
+    words = col_nbmask.reshape(-1)[row * (9 * W32) + nb * W32 + (cz >> 5)]
+    occ = ((words >> (cz & 31)) & 1) > 0
+    t_cand = t_cand.reshape(B, 2 * G)[:, :num_cand]
+    occ = occ.reshape(B, 2 * G)[:, :num_cand]
+    valid = occ & (t_cand < t_end[:, None]) & slot_valid[:, None]
+    if floor_t is not None:
+        valid = valid & (t_cand >= floor_t[:, None])
+    sel_k, mask = first_s_select(valid, num_cand, max_samples)
+    return _lattice_samples(rays_o, rays_d, t0, sel_k, mask, bound, dt)
+
+
 def march_rays_window_bitmask_nb_block(
     rays_o: torch.Tensor,      # [4*Bb, 3] block-major (4 rays per block)
     rays_d: torch.Tensor,      # [4*Bb, 3]
@@ -326,7 +452,8 @@ def march_rays_window_bitmask_nb_block(
     reference. Both give the same samples bit for bit."""
     if variant not in ("nb5w", "nb5wp"):
         raise NotImplementedError(
-            f"the port has the nb5w/nb5wp block march only, not {variant!r}")
+            f"the port has the nb5w/nb5wp block march only, not {variant!r} "
+            "(ROADMAP Queue 1 item 8)")
     B = rays_o.shape[0]
     if B % 4:
         raise ValueError("block march needs 4 rays per block")
@@ -402,11 +529,13 @@ def block_view(rays_d: torch.Tensor, H: int, W: int):
 
 
 def measured_window_candidates(settings, z_lo, z_hi, poses, intrinsics,
-                               H: int, W: int, margin: int = 4,
-                               pose_batch: int = 8) -> int:
-    """Exact per-trajectory K2 for the block path: the block-centre window
-    analysis (pad 3.0, as the renderer runs it) over every pose, sized from
-    the largest candidate count any active window needs, plus `margin`."""
+                               H: int, W: int, block: bool = True,
+                               margin: int = 4, pose_batch: int = 8) -> int:
+    """Exact per-trajectory K2: the serving window analysis over every
+    pose, sized from the largest candidate count any active window needs,
+    plus `margin`. block=True measures the 2x2-block-centre windows (pad
+    3.0, as render_rays_compact_blocks runs it), block=False the per-ray
+    windows (pad 2.0, render_rays_compact)."""
     from ..utils.rays import get_rays
     from .ray import near_far_from_aabb
 
@@ -417,13 +546,16 @@ def measured_window_candidates(settings, z_lo, z_hi, poses, intrinsics,
     mx = 0.0
     for s in range(0, len(poses), pose_batch):
         rays = get_rays(poses[s:s + pose_batch], intrinsics, H, W)
-        _, d = block_view(rays["rays_d"], H, W)
-        o = rays["rays_o"][:, :1].expand(d.shape)
+        if block:
+            _, d = block_view(rays["rays_d"], H, W)
+            o = rays["rays_o"][:, :1].expand(d.shape)
+        else:
+            d, o = rays["rays_d"], rays["rays_o"]
         d = d.reshape(-1, 3)
         o = o.reshape(-1, 3)
         nears, fars = near_far_from_aabb(o, d, aabb, settings.min_near)
         win = ray_windows(o, d, nears, fars, z_lo, z_hi, settings.bound,
-                          settings.dt, pad_steps=3.0)
+                          settings.dt, pad_steps=3.0 if block else 2.0)
         steps = torch.ceil((win.t_end - win.t_start) / settings.dt)
         mx = max(mx, float(torch.where(win.active, steps,
                                        torch.zeros_like(steps)).max()))
@@ -449,40 +581,59 @@ def window_candidates_for_scene(z_lo, z_hi, dt: float, min_dz: float = 0.8,
 
 
 def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
-                       W: int, k2_override: int = 0, log=print) -> int:
-    """The serving march plan of the group-2 block march: K2 (k2_override
-    when nonzero, else the geometric bound tightened to the
-    trajectory-measured count) after the drift-envelope check. The port
-    has the group-2 block march only, so a geometry outside its ±2
-    envelope raises instead of stepping down to the per-ray march."""
+                       W: int, k2_override: int = 0, march_group: int = 1,
+                       march_variant: str = "wslice",
+                       measure: Optional[str] = None, log=print
+                       ) -> Tuple[int, int, str]:
+    """The serving march plan for one model and camera geometry ->
+    (k2, march_group, march_variant). K2 is k2_override when nonzero,
+    else the geometric bound (window_candidates_for_scene), tightened
+    with measure="block"/"ray" to the trajectory-measured count. A
+    group-2 plan outside the block march's ±2 drift envelope steps down
+    to the per-ray exact march (group 1); march_group=1 skips the check
+    (the non-block callers). Groups 3 and the quadrant variants are not
+    ported: a plan that asks for one raises (ROADMAP Queue 1 item 8)."""
     from ..utils.rays import min_corner_dz
 
+    if march_group not in (1, 2) or (
+            march_group == 2 and march_variant not in ("nb5w", "nb5wp")):
+        raise NotImplementedError(
+            f"march group {march_group} variant {march_variant!r} is not "
+            "ported (ROADMAP Queue 1 item 8)")
     dz = min_corner_dz(poses, intrinsics, H, W)
     k2 = k2_override
     if not k2:
         k2 = window_candidates_for_scene(
             z_lo.detach().cpu().numpy(), z_hi.detach().cpu().numpy(),
             settings.dt, min_dz=dz)
-        k2m = measured_window_candidates(settings, z_lo, z_hi, poses,
-                                         intrinsics, H, W)
-        if k2m < k2:
-            log(f"[INFO] trajectory-measured window candidates: "
-                f"K2={k2m} (geometric bound {k2})")
-            k2 = k2m
+        if measure in ("block", "ray"):
+            k2m = measured_window_candidates(settings, z_lo, z_hi, poses,
+                                             intrinsics, H, W,
+                                             block=measure == "block")
+            if k2m < k2:
+                log(f"[INFO] trajectory-measured window candidates: "
+                    f"K2={k2m} (geometric bound {k2})")
+                k2 = k2m
+            else:
+                log(f"[INFO] adaptive window candidates: K2={k2} "
+                    f"(measured {k2m} >= geometric bound)")
         else:
             log(f"[INFO] adaptive window candidates: K2={k2} "
-                f"(measured {k2m} >= geometric bound)")
-    t_max = float(np.linalg.norm(np.asarray(poses)[:, :3, 3], axis=1).max()
-                  ) + math.sqrt(3.0) * settings.bound
-    drift = nb_block_drift_cells(settings.dt, settings.bound,
-                                 settings.grid_size,
-                                 min(intrinsics[0], intrinsics[1]), t_max, dz)
-    if drift > 2.0:
-        raise NotImplementedError(
-            f"block-shared march drift {drift:.2f} cells exceeds the ±2 "
-            "envelope for this camera/grid; the per-ray march it would "
-            "step down to is not ported yet (ROADMAP Queue 1 item 4)")
-    return k2
+                f"(grid {settings.grid_size}, dt {settings.dt:.4f})")
+    if march_group == 2:
+        t_max = float(np.linalg.norm(np.asarray(poses)[:, :3, 3],
+                                     axis=1).max()
+                      ) + math.sqrt(3.0) * settings.bound
+        drift = nb_block_drift_cells(settings.dt, settings.bound,
+                                     settings.grid_size,
+                                     min(intrinsics[0], intrinsics[1]),
+                                     t_max, dz)
+        if drift > 2.0:
+            log(f"[INFO] block-shared march drift {drift:.2f} cells "
+                "exceeds the ±2 envelope for this camera/grid — using "
+                "the per-ray exact neighborhood march")
+            march_group = 1
+    return k2, march_group, march_variant
 
 
 def bucket_short_budget(n_short: int, budget: int, gran: int,

@@ -1,9 +1,12 @@
 """The serving frame: block windows -> prepass -> compaction -> block march
 -> staged field eval + composite -> block scatter + background (port of
 render_rays_compact_blocks and the torso pass of
-lzzx_nerf_tpu/render/renderer.py); and the training renders: render_rays
-(the full-path march, training and eval), render_rays_train_compact
-(window-compacted rays) and run_torso (the dense torso pass).
+lzzx_nerf_tpu/render/renderer.py), its per-ray fallback
+render_rays_compact (per-ray windows and the per-ray exact march: odd
+frame sides, infer_block 1); and the training renders: render_rays (the
+full-path march, training and eval, and the serving path at cascade > 1),
+render_rays_train_compact (window-compacted rays) and run_torso (the
+dense torso pass).
 
 The JAX package scatters with mode="drop" to sentinel indices; here every
 such scatter writes to one extra discarded row instead, so an out-of-range
@@ -21,16 +24,29 @@ from ..ops.composite import composite_rays, cumprod_seq, exclusive_cumprod
 from ..ops.march import MarchResult, march_rays_uniform
 from ..ops.march2 import (InferenceTables, block_view, column_intervals,
                           compact_rays, default_window_candidates,
-                          march_rays_window,
+                          march_rays_window, march_rays_window_bitmask_nb,
                           march_rays_window_bitmask_nb_block,
                           prepass_block_hits, prepass_block_spans,
                           ray_windows)
 from ..ops.ray import near_far_from_aabb
+from ..models.nerf import FieldOutputs
 from ..utils.clip import clip
 from .state import OccupancyState, RenderSettings
 
 # (pts [N, 3], dirs [N, 3]) -> (sigma [N], color [N, 3]) for one frame
 FieldApply = Callable[[torch.Tensor, torch.Tensor], Any]
+
+
+def field_outputs(apply: FieldApply) -> Callable[..., FieldOutputs]:
+    """A serving field (sigma, color) as the FieldOutputs that render_rays
+    and the full outputs of render_rays_compact composite, with zero
+    ambient and uncertainty channels (the JAX package's fused apply at
+    inference)."""
+    def fn(pts, dirs):
+        sigma, color = apply(pts, dirs)
+        z = torch.zeros_like(sigma)
+        return FieldOutputs(sigma, color, z, z, z)
+    return fn
 
 
 def effective_infer_stage2_budget(budget: int, stage2_budget: int) -> int:
@@ -96,6 +112,10 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
     wsum = w1.sum(dim=-1)
     T_end = P1[:, -1]
 
+    if S2 == 0:
+        # the split clamped to S: stage 2 is empty (no survivor)
+        return image, wsum, torch.zeros((), dtype=torch.int64,
+                                        device=image.device)
     surv = (T_end >= settings.T_thresh) & m.mask[:, S1:].any(dim=-1)
     cs2 = compact_rays(surv, stage2_budget)
     idx2 = cs2.ray_idx
@@ -117,6 +137,19 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
                               torch.einsum("ns,nsc->nc", w2, rgb2))
     wsum = _scatter_add_rows(wsum, idx2, cs2.slot_valid, w2.sum(dim=-1))
     return image, wsum, cs2.n_active
+
+
+def _single_pass_composite(field_apply: FieldApply, settings: RenderSettings,
+                           m, rd: torch.Tensor, B: int, S: int):
+    """One field eval of all B*S samples and composite_rays' image and
+    weight sum (the serving composite with stage_split=0). Returns
+    (image_premult [B, 3], weights_sum [B])."""
+    sigma, color = field_apply(m.xyzs.reshape(B * S, 3), _repeat_rows(rd, S))
+    sig = (sigma * settings.density_scale).reshape(B, S)
+    alpha = (1.0 - torch.exp(-sig * m.deltas)) * m.mask
+    T = exclusive_cumprod(1.0 - alpha)
+    w = alpha * T * ((T >= settings.T_thresh) & m.mask)
+    return torch.einsum("ns,nsc->nc", w, color.reshape(B, S, 3)), w.sum(-1)
 
 
 def _aabb(settings: RenderSettings, aabb, device) -> torch.Tensor:
@@ -153,9 +186,11 @@ def render_rays(field_fn: Callable, settings: RenderSettings,
     regulariser."""
     N = rays_o.shape[0]
     S = settings.max_steps
-    nears, fars = near_far_from_aabb(
+    # the lattice carries no gradient to the rays (train_camera's) through
+    # its near bound, as in the JAX package
+    nears, fars = (t.detach() for t in near_far_from_aabb(
         rays_o, rays_d, _aabb(settings, aabb, rays_o.device),
-        settings.min_near)
+        settings.min_near))
     m = march_rays_uniform(rays_o, rays_d, nears, fars, state.occ,
                            settings.bound, settings.dt, settings.num_cand,
                            S, noise=noise)
@@ -195,13 +230,13 @@ def render_rays_train_compact(
     if stage_split:
         raise NotImplementedError(
             "stage_split > 0 (the staged training composite) is not "
-            "ported yet; it is a later slice of the training port")
+            "ported yet (ROADMAP Queue 1 item 5)")
     N = rays_o.shape[0]
     S = settings.max_steps
     K2 = window_candidates or settings.num_cand + 2
-    nears, fars = near_far_from_aabb(
+    nears, fars = (t.detach() for t in near_far_from_aabb(
         rays_o, rays_d, _aabb(settings, aabb, rays_o.device),
-        settings.min_near)
+        settings.min_near))
     z_lo, z_hi = column_intervals(state.occ, settings.bound)
     win = ray_windows(rays_o, rays_d, nears, fars, z_lo, z_hi,
                       settings.bound, settings.dt)
@@ -251,6 +286,99 @@ def render_rays_train_compact(
     }
 
 
+def render_rays_compact(
+    field_apply: Callable,
+    settings: RenderSettings,
+    rays_o: torch.Tensor,            # [N, 3]
+    rays_d: torch.Tensor,            # [N, 3]
+    bg_color: torch.Tensor,          # [N, 3]
+    budget: int,
+    tables: InferenceTables,
+    window_candidates: Optional[int] = None,
+    minimal: bool = False,
+    stage_split: int = 0,
+    stage2_budget: int = 0,
+    aabb: Optional[torch.Tensor] = None,
+) -> Dict[str, Any]:
+    """The per-ray compact render (cascade 1): per-ray windows over the
+    column intervals, the first `budget` active rays compacted into
+    slots, the per-ray exact neighbourhood march
+    (march_rays_window_bitmask_nb over tables.col_nbmask), the field eval
+    and composite, scattered back over the frame; active rays beyond the
+    budget render as background (n_active reports the demand).
+
+    minimal: image, weights_sum, n_active and n_winmax only, with
+    field_apply(pts, dirs) -> (sigma, color); with stage_split > 0 (the
+    split clamped to S) the staged eval (_staged_eval_composite, with
+    n_stage2), else the single-pass composite. minimal=False: also depth,
+    ambient_aud, ambient_eye, uncertainty, with field_apply returning
+    FieldOutputs (field_outputs wraps a serving field)."""
+    if settings.cascade != 1:
+        raise ValueError("the compact path supports cascade == 1 only")
+    if tables.col_nbmask is None:
+        raise ValueError("render_rays_compact marches with tables.col_nbmask "
+                         "(ensure_variant_tables(..., ('nb',)))")
+    N = rays_o.shape[0]
+    S = settings.max_steps
+    dt = settings.dt
+    K2 = window_candidates or default_window_candidates(
+        settings.bound, settings.grid_size, dt)
+    nears, fars = near_far_from_aabb(
+        rays_o, rays_d, _aabb(settings, aabb, rays_o.device),
+        settings.min_near)
+    win = ray_windows(rays_o, rays_d, nears, fars, tables.z_lo, tables.z_hi,
+                      settings.bound, dt)
+    cs = compact_rays(win.active, budget)
+    steps = torch.ceil((win.t_end - win.t_start) / dt)
+    n_winmax = torch.where(win.active, steps,
+                           torch.zeros_like(steps)).max().to(torch.int64) + 1
+
+    cols = [rays_o, rays_d, win.t_start[:, None], win.t_end[:, None]]
+    if not minimal:
+        cols += [nears[:, None], fars[:, None], bg_color]
+    rows = torch.cat(cols, dim=-1).index_select(0, cs.ray_idx)
+    ro, rd = rows[:, 0:3], rows[:, 3:6]
+    m = march_rays_window_bitmask_nb(ro, rd, rows[:, 6], rows[:, 7],
+                                     cs.slot_valid, tables.col_nbmask,
+                                     settings.bound, dt, K2, S)
+
+    def scat(vals, base=None):
+        if base is None:
+            base = vals.new_zeros((N,) + vals.shape[1:])
+        return _set_rows(base, cs.ray_idx, cs.slot_valid, vals)
+
+    if minimal:
+        out: Dict[str, Any] = {"n_active": cs.n_active, "n_winmax": n_winmax}
+        if stage_split > 0:
+            b2 = effective_infer_stage2_budget(budget, stage2_budget)
+            image_c, wsum_c, out["n_stage2"] = _staged_eval_composite(
+                field_apply, settings, m, rd, budget, S,
+                min(stage_split, S), b2)
+        else:
+            image_c, wsum_c = _single_pass_composite(field_apply, settings,
+                                                     m, rd, budget, S)
+        wsum = scat(wsum_c)
+        out["image"] = torch.clamp(
+            scat(image_c) + (1.0 - wsum)[:, None] * bg_color, 0.0, 1.0)
+        out["weights_sum"] = wsum
+        return out
+
+    comp = _composite_outputs(
+        field_apply(m.xyzs.reshape(budget * S, 3), _repeat_rows(rd, S)), m,
+        budget, S, settings)
+    nears_c, fars_c, bg_c = rows[:, 8], rows[:, 9], rows[:, 10:13]
+    image_c = clip(comp.image + (1.0 - comp.weights_sum)[:, None] * bg_c,
+                   0.0, 1.0)
+    depth_c = clip(comp.depth - nears_c, 0.0) / clip(fars_c - nears_c, 1e-6)
+    return {"image": scat(image_c, clip(bg_color, 0.0, 1.0)),
+            "depth": scat(depth_c),
+            "weights_sum": scat(comp.weights_sum),
+            "ambient_aud": scat(comp.amb_aud_sum),
+            "ambient_eye": scat(comp.amb_eye_sum),
+            "uncertainty": scat(comp.uncertainty_sum),
+            "n_active": cs.n_active, "n_winmax": n_winmax}
+
+
 def render_rays_compact_blocks(
     field_apply: FieldApply,
     settings: RenderSettings,
@@ -272,10 +400,13 @@ def render_rays_compact_blocks(
     aabb: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     """Serving fast path with 2x2-pixel-block window analysis, the
-    occupancy prepass (always on: the JAX package's march_prepass=True),
-    compaction into the ray budget, the group-2 block march (variant nb5wp
-    = the CUDA select kernel, nb5w = its plain version), the post-march
-    eval re-compaction and the staged eval.
+    occupancy prepass (on with the group-2 march: the JAX package's
+    march_prepass=True), compaction into the ray budget, the group-2 block
+    march (variant nb5wp = the CUDA select kernel, nb5w = its plain
+    version) or, with march_group=1, the per-ray exact neighbourhood march
+    (no prepass; tables.col_nbmask), the post-march eval re-compaction and
+    the staged eval (stage_split > 0, clamped to S) or the single-pass
+    composite (stage_split=0).
 
     march_bucket = (K2s, short_budget): the short/long bucket march. Each
     block's window is tightened to its prepass span (a shift by whole
@@ -296,24 +427,26 @@ def render_rays_compact_blocks(
 
     Returns image [H*W, 3], weights_sum, and the diagnostics n_active
     (admitted rays, may exceed the budget), n_winmax (largest candidate
-    count an active block window needs), n_stage2, with a bucket n_short
+    count an active block window needs), with the staged eval n_stage2,
+    with a bucket n_short
     (short demand) and n_long (long-bucket rays, spilled shorts included),
     with the re-compaction n_real (rays of real blocks); and, in slot
     order, march_mask / march_ts (the marched samples as they reach the
     eval) with slot_block / slot_valid (each slot's block index).
 
     Not ported yet, and refused rather than ignored: stage-1 sample
-    compaction (sample_budget), march groups other than 2 and the
-    single-pass (stage_split=0) composite."""
+    compaction (sample_budget) and march groups other than 1 and 2
+    (ROADMAP Queue 1 item 8)."""
     if sample_budget:
         raise NotImplementedError("sample_budget (stage-1 sample "
-                                  "compaction) is not ported yet")
-    if march_group != 2:
-        raise NotImplementedError("the port has the group-2 block march "
-                                  "only")
-    if not 0 < stage_split:
-        raise NotImplementedError("the port has the staged composite only "
-                                  "(stage_split > 0)")
+                                  "compaction) is not ported yet (ROADMAP "
+                                  "Queue 1 item 8)")
+    if march_group not in (1, 2):
+        raise NotImplementedError(f"march group {march_group} is not ported "
+                                  "(ROADMAP Queue 1 item 8)")
+    if march_bucket is not None and march_group != 2:
+        raise ValueError("march_bucket requires the group-2 march (its "
+                         "split comes from the prepass spans)")
     if settings.cascade != 1:
         raise ValueError("the compact path supports cascade == 1 only")
     if H % 2 or W % 2 or budget % 4:
@@ -348,10 +481,14 @@ def render_rays_compact_blocks(
         hit, g_first, g_last = prepass_block_spans(
             o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
             settings.bound, dt, K2)
+        active = win.active & hit
+    elif march_group == 2:
+        active = win.active & prepass_block_hits(
+            o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
+            settings.bound, dt, K2)
     else:
-        hit = prepass_block_hits(o_center, d_center, win.t_start, win.t_end,
-                                 tables.col_dilwords, settings.bound, dt, K2)
-    active = win.active & hit
+        # the prepass's envelope is the block-shared march's
+        active = win.active
     steps = torch.ceil((win.t_end - win.t_start) / dt)
     n_winmax = torch.where(win.active, steps,
                            torch.zeros_like(steps)).max().to(torch.int64) + 1
@@ -384,6 +521,10 @@ def render_rays_compact_blocks(
         k0 = torch.ceil(torch.clamp(t_start - nears_r, min=0.0) / dt - 1e-4)
         t_start = nears_r + k0 * dt
         t_end = torch.minimum(fars_r, t1b)
+        if march_group == 1:
+            return rd_, march_rays_window_bitmask_nb(
+                ro, rd_, t_start, t_end, sv, tables.col_nbmask,
+                settings.bound, dt, k2, S)
         return rd_, march_rays_window_bitmask_nb_block(
             ro.contiguous(), rd_, t_start, t_end, sv, t0_blk, dc,
             tables.col_nb5wmask, settings.bound, dt, k2, S,
@@ -437,10 +578,14 @@ def render_rays_compact_blocks(
         budget_b = eb
 
     B = budget_b * 4
-    # the stage-2 slots follow the ray budget, as in the JAX package
-    b2 = effective_infer_stage2_budget(budget, stage2_budget)
-    image_c, wsum_c, n_stage2 = _staged_eval_composite(
-        field_apply, settings, m, rd, B, S, min(stage_split, S), b2)
+    if stage_split > 0:
+        # the stage-2 slots follow the ray budget, as in the JAX package
+        b2 = effective_infer_stage2_budget(budget, stage2_budget)
+        image_c, wsum_c, diag["n_stage2"] = _staged_eval_composite(
+            field_apply, settings, m, rd, B, S, min(stage_split, S), b2)
+    else:
+        image_c, wsum_c = _single_pass_composite(field_apply, settings, m,
+                                                 rd, B, S)
 
     # scatter per block: 16-wide rows (4 rays x (rgb + wsum))
     payload = torch.cat([image_c.reshape(budget_b, 12),
@@ -453,7 +598,7 @@ def render_rays_compact_blocks(
         0, 2, 1, 3).reshape(N)
     image = torch.clamp(img_acc + (1.0 - wsum)[:, None] * bg_color, 0.0, 1.0)
     return {"image": image, "weights_sum": wsum, "n_active": n_active,
-            "n_winmax": n_winmax, "n_stage2": n_stage2, **diag,
+            "n_winmax": n_winmax, **diag,
             # the samples as they reach the eval, slot-ordered
             "march_mask": m.mask, "march_ts": m.ts,
             "slot_block": blk_idx, "slot_valid": blk_valid}

@@ -30,6 +30,25 @@ class RenderSettings:
     exp_eye: bool = True
     torso_shrink: float = 0.8
 
+    @staticmethod
+    def from_config(cfg) -> "RenderSettings":
+        """The settings of a Config (its bound, cascade, grid, S, the
+        constant dt and the candidate count of its aabb)."""
+        from ..ops.march import marching_dt, num_candidates
+
+        dt = marching_dt(cfg.bound, cfg.grid_size, cfg.max_steps,
+                         cfg.cascade)
+        aabb = cfg.aabb()
+        return RenderSettings(
+            bound=cfg.bound, cascade=cfg.cascade, grid_size=cfg.grid_size,
+            max_steps=cfg.max_steps,
+            num_cand=num_candidates(aabb, cfg.min_near, dt), dt=dt,
+            min_near=cfg.min_near, T_thresh=cfg.T_thresh,
+            density_thresh=cfg.density_thresh,
+            density_thresh_torso=cfg.density_thresh_torso,
+            density_scale=cfg.density_scale, aabb=aabb,
+            exp_eye=cfg.exp_eye, torso_shrink=cfg.torso_shrink)
+
 
 class OccupancyState(NamedTuple):
     """Occupancy-grid state."""

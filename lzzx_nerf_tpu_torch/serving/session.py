@@ -39,6 +39,7 @@ ray budget, which holds every survivor).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -55,18 +56,22 @@ from ..config import Config
 from ..models.nerf import NeRFField, TorsoField, make_fused_apply
 from ..ops.march import num_candidates
 from ..ops.march2 import (block_view, bucket_short_budget,
-                          build_inference_tables, measure_bucket_plan,
-                          measure_real_blocks_host, prepass_block_hits,
+                          build_inference_tables, ensure_variant_tables,
+                          measure_bucket_plan, measure_real_blocks_host,
+                          needed_variant_tables, prepass_block_hits,
                           ray_windows, resolve_march_plan)
 from ..ops.ray import near_far_from_aabb
-from ..render.renderer import (build_torso_plan, render_rays_compact_blocks,
-                               run_torso_compact)
+from ..render.renderer import (build_torso_plan, field_outputs, render_rays,
+                               render_rays_compact,
+                               render_rays_compact_blocks, run_torso_compact)
 from ..render.state import OccupancyState, RenderSettings
 from ..utils.color import rgb_to_yuv420
 from ..utils.device import resolve_device
+from ..utils.pose import camera_refinement
 from ..utils.profiling import PhaseAccumulator
 from ..utils.rays import get_bg_coords, get_rays
-from .state_io import load_trained_state, params_from_jax
+from .state_io import (load_trained_state, load_workspace_state,
+                       params_from_jax)
 from .streaming import FrameSink, NullSink
 
 SMOOTH_LIPS = 0.35   # EMA weight of the previous frame's audio code
@@ -96,9 +101,17 @@ class _Session:
 
     # ---- the identity ----------------------------------------------------
 
+    # the frame's render path: "blocks" (render_rays_compact_blocks),
+    # "compact" (render_rays_compact: odd frame sides, infer_block 1) or
+    # "full" (render_rays: cascade > 1)
+    path = "blocks"
+    march_group = 2
+    train_camera = False
+
     def _load(self, st: dict, device: torch.device, settings: RenderSettings,
               H: int, W: int, intrinsics, poses, bg: np.ndarray, chunk: int,
-              att: int = 2, log=print) -> None:
+              att: int = 2, log=print,
+              variants: tuple = ("nb5w", "dil")) -> None:
         """Put the state `st` (load_trained_state's dict) on `device` for
         H x W frames at `poses` [P, 4, 4] over the background `bg`
         [H, W, 3]: the head (EMA weights, bf16 tables), the torso when the
@@ -123,10 +136,13 @@ class _Session:
 
         head = st["head"]
         codes = head.get("individual_codes")
+        cam = head.get("camera_dR")
         self.field = NeRFField(
+            bound=settings.bound,
             audio_in_dim=int(st["meta"]["audio_dim"]), att=att,
             ind_dim=0 if codes is None else int(np.shape(codes)[1]),
-            ind_num=1 if codes is None else int(np.shape(codes)[0]))
+            ind_num=1 if codes is None else int(np.shape(codes)[0]),
+            camera_frames=0 if cam is None else int(np.shape(cam)[0]))
         self.field.load_state_dict(params_from_jax(head))
         self.field.to(dev).eval()
         self.ind_code = (None if codes is None
@@ -149,7 +165,8 @@ class _Session:
             self.torso_packed = self.torso.bake_table(torch.float32)
             self.torso_plan = build_torso_plan(
                 settings, self.occ, get_bg_coords(H, W, device=dev)[0])
-        self.tables = build_inference_tables(self.occ.occ, settings.bound)
+        self.tables = build_inference_tables(self.occ.occ, settings.bound,
+                                             variants=variants)
 
         self.gran = 1024 if frame >= 65536 else 256
         self.frame_cap = max(self.gran, frame // self.gran * self.gran)
@@ -234,6 +251,14 @@ class _Session:
         rays = get_rays(pose[None], self.intrinsics, H, W)
         origin = rays["rays_o"][0, 0]
         rays_d = rays["rays_d"][0]
+        if self.train_camera:
+            # the learned per-frame pose refinement, as the train step
+            # applies it
+            dR, dT = camera_refinement(self.field.camera_dR.detach(),
+                                       self.field.camera_dT.detach(),
+                                       pose_id[0])
+            origin = origin + dT
+            rays_d = rays_d @ dR
         apply = make_fused_apply(self.field, self.packed, enc_a,
                                  self.ind_code, eye, use_kernel=use_kernels)
         frame_bg = self.bg
@@ -246,17 +271,31 @@ class _Session:
             frame_bg = run_torso_compact(
                 torso_apply, self.torso_plan, pose,
                 self.torso.individual_codes_torso[0], self.bg)
-        out = render_rays_compact_blocks(
-            apply, self.settings, origin, rays_d, H, W, frame_bg,
-            budget=self.budget, tables=self.tables,
-            window_candidates=self.k2, stage_split=self.stage_split,
-            stage2_budget=self.stage2_budget,
-            march_variant="nb5wp" if use_kernels else "nb5w",
-            eval_budget=self.eval_budget, march_bucket=self.bucket,
-            aabb=self.aabb)
+        if self.path == "blocks":
+            out = render_rays_compact_blocks(
+                apply, self.settings, origin, rays_d, H, W, frame_bg,
+                budget=self.budget, tables=self.tables,
+                window_candidates=self.k2, stage_split=self.stage_split,
+                stage2_budget=self.stage2_budget,
+                march_group=self.march_group,
+                march_variant="nb5wp" if use_kernels else "nb5w",
+                eval_budget=self.eval_budget, march_bucket=self.bucket,
+                aabb=self.aabb)
+        elif self.path == "compact":
+            out = render_rays_compact(
+                apply, self.settings, origin.expand(rays_d.shape), rays_d,
+                frame_bg, budget=self.budget, tables=self.tables,
+                window_candidates=self.k2, minimal=True,
+                stage_split=self.stage_split,
+                stage2_budget=self.stage2_budget, aabb=self.aabb)
+        else:
+            out = render_rays(field_outputs(apply), self.settings, self.occ,
+                              origin.expand(rays_d.shape), rays_d, frame_bg,
+                              aabb=self.aabb)
         img = torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
-        res = {"image": img, "march_mask": out["march_mask"],
-               **{k: out[k] for k in COUNTERS if k in out}}
+        res = {"image": img, **{k: out[k] for k in COUNTERS if k in out}}
+        if "march_mask" in out:
+            res["march_mask"] = out["march_mask"]
         if fmt == "yuv420p":
             res["yuv"] = rgb_to_yuv420(img)
         else:
@@ -560,9 +599,17 @@ class ServingSession(_Session):
         self._eval_override = eval_budget
         self._stage2_override = stage2_budget
         self._measured: Dict[int, dict] = {}
-        self.k2_measured = 0 if k2 else resolve_march_plan(
-            self.settings, self.tables.z_lo, self.tables.z_hi, self.poses,
-            self.intrinsics, self.H, self.W, log=log)
+        self.k2_measured = 0
+        if not k2:
+            self.k2_measured, group, _ = resolve_march_plan(
+                self.settings, self.tables.z_lo, self.tables.z_hi,
+                self.poses, self.intrinsics, self.H, self.W, march_group=2,
+                march_variant="nb5wp", measure="block", log=log)
+            if group != 2:
+                raise ValueError(
+                    "these poses exceed the block march's drift envelope; "
+                    "the bench session plans the group-2 block march only "
+                    "(InferenceSession steps down to the per-ray march)")
         self._build_plan(t_build)
 
     # ---- plan ------------------------------------------------------------
@@ -724,18 +771,10 @@ def unported_plan(cfg: Config) -> List[str]:
     with the ROADMAP item that ports it (empty: the port serves cfg)."""
     q1 = "ROADMAP Queue 1 item"
     checks = (
-        (cfg.cascade != 1, f"bound {cfg.bound} (cascade {cfg.cascade} > 1) "
-         f"serves through the exhaustive marcher: {q1} 4"),
-        (cfg.infer_block != 2, f"infer_block {cfg.infer_block} (per-ray "
-         f"window analysis, render_rays_compact): {q1} 4"),
-        (cfg.infer_march_group != 2, f"infer_march_group "
-         f"{cfg.infer_march_group} (group 1: {q1} 4; group 3 and the "
-         f"dilated modes: {q1} 8)"),
-        (cfg.infer_stage_split <= 0, "infer_stage_split 0 (the single-pass "
-         f"composite): {q1} 4"),
+        (cfg.infer_march_group not in (1, 2), f"infer_march_group "
+         f"{cfg.infer_march_group} (group 3 and the dilated modes): {q1} 8"),
         (cfg.infer_sample_frac > 0, "infer_sample_frac > 0 (stage-1 sample "
          f"compaction): {q1} 8"),
-        (cfg.train_camera, f"train_camera (learned pose refinement): {q1} 5"),
         (cfg.infer_data_parallel >= 2, "infer_data_parallel >= 2 "
          f"(frame-parallel serving, parallel/): {q1} 7"),
         (cfg.infer_march_variant != "nb5w", f"infer_march_variant "
@@ -785,11 +824,17 @@ class InferenceSession(_Session):
     # -- model/data ----------------------------------------------------------
 
     def load_model(self, data_path: str, workspace: str) -> None:
-        """Switch identity: the dataset at data_path and the trained
-        state workspace/production_state.pkl, with the architecture
-        fields of the workspace's opt.txt. Raises when the Config asks
-        for a path the port does not have, when the state's grid is not
-        the Config's, or when there is no state."""
+        """Switch identity: the dataset at data_path and the trained state
+        of `workspace` (its production_state.pkl, else the newest
+        checkpoint of the port's CLI with <workspace>_torso's torso:
+        state_io.load_workspace_state), with the architecture fields of
+        the workspace's opt.txt. The render path follows the JAX
+        session's: the 2x2-block path, the per-ray compact render for odd
+        frame sides or infer_block 1, the exhaustive marcher at cascade >
+        1; the block march steps down to the per-ray march outside its
+        drift envelope. Raises when the Config asks for a path the port
+        does not have, when the state's grid is not the Config's, or when
+        there is no state."""
         from ..data.provider import NeRFDataset
 
         t0 = time.perf_counter()
@@ -800,66 +845,87 @@ class InferenceSession(_Session):
         if bad:
             raise NotImplementedError("the port has no serving path for: "
                                       + "; ".join(bad))
-        state_path = os.path.join(workspace, "production_state.pkl")
-        if not os.path.exists(state_path):
+        st = load_workspace_state(workspace, use_ema=cfg.use_ema)
+        if st is None:
             raise FileNotFoundError(
-                f"no trained state at {state_path} (the port serves "
-                "production_state.pkl workspaces; orbax checkpoints are not "
-                "read)")
-        st = load_trained_state(state_path)
+                f"no trained state in {workspace}: neither "
+                "production_state.pkl nor a checkpoint of the port's CLI "
+                "under checkpoints/ (orbax checkpoints are not read; "
+                "state_io.checkpoint_from_jax converts them)")
         meta = st["meta"]
         if int(meta["grid"]) != cfg.grid_size:
-            raise ValueError(f"{state_path} holds a grid of {meta['grid']} "
+            raise ValueError(f"{workspace} holds a grid of {meta['grid']} "
                              f"cells, the Config grid_size {cfg.grid_size}")
         ds = NeRFDataset(cfg, type="train")
         ds.training = False
-        if ds.H % 2 or ds.W % 2:
-            raise NotImplementedError(
-                f"frame size {ds.W}x{ds.H} is odd: the 2x2-block path needs "
-                "even sides (render_rays_compact: ROADMAP Queue 1 item 4)")
         if (ds.aud_features is not None
                 and ds.aud_features.shape[-1] != int(meta["audio_dim"])):
             raise ValueError(f"audio features of width "
                              f"{ds.aud_features.shape[-1]} under {data_path}, "
                              f"the state's audio net reads "
                              f"{meta['audio_dim']}")
-        aabb = tuple(float(x) for x in meta["aabb"])
-        dt = float(meta["dt"])
-        settings = RenderSettings(
-            bound=cfg.bound, cascade=1, grid_size=cfg.grid_size,
-            max_steps=cfg.infer_samples or cfg.max_steps, dt=dt,
-            num_cand=num_candidates(aabb, cfg.min_near, dt),
-            min_near=cfg.min_near, T_thresh=cfg.T_thresh,
-            density_thresh=cfg.density_thresh,
-            density_thresh_torso=cfg.density_thresh_torso,
-            density_scale=cfg.density_scale, aabb=aabb,
-            exp_eye=cfg.exp_eye, torso_shrink=cfg.torso_shrink)
+        settings = RenderSettings.from_config(cfg)
+        if "aabb" in meta:
+            # a production state carries the geometry it was trained with
+            aabb = tuple(float(x) for x in meta["aabb"])
+            dt = float(meta["dt"])
+            settings = dataclasses.replace(
+                settings, aabb=aabb, dt=dt,
+                num_cand=num_candidates(aabb, cfg.min_near, dt))
+        settings = dataclasses.replace(
+            settings, max_steps=cfg.infer_samples or cfg.max_steps)
         self.cfg, self.ds = cfg, ds
         self._load(st, self.device, settings, ds.H, ds.W, ds.intrinsics,
                    ds.poses, ds.bg_img, self._chunk_size(), att=cfg.att,
-                   log=self.log)
+                   log=self.log, variants=())
+        self.train_camera = bool(cfg.train_camera
+                                 and hasattr(self.field, "camera_dT"))
         self.stage_split = cfg.infer_stage_split
         self._budget_override = self._k2_override = 0
         self._eval_override = self._stage2_override = 0
         self._bucket_plan = None
         self._carry = False
         self.resumed = True
-        # K2 from the Config, else measured over the dataset's poses; the
-        # drift check raises where the JAX session steps down to group 1
-        self.k2_planned = resolve_march_plan(
+
+        # the render path and march plan (the JAX session's
+        # _compile_render)
+        use_compact = settings.cascade == 1
+        if not use_compact:
+            self.log(f"[INFO] bound={cfg.bound} -> cascade="
+                     f"{settings.cascade} > 1: serving through the "
+                     "exhaustive marcher (render_rays) — slower, "
+                     "sample-identical; the fast path needs cascade == 1")
+        use_blocks = (use_compact and cfg.infer_block == 2
+                      and ds.H % 2 == 0 and ds.W % 2 == 0)
+        self.path = ("blocks" if use_blocks else
+                     "compact" if use_compact else "full")
+        self.k2_planned, group, variant = resolve_march_plan(
             settings, self.tables.z_lo, self.tables.z_hi, self.poses,
             self.intrinsics, self.H, self.W,
-            k2_override=cfg.infer_window_candidates, log=self.log)
+            k2_override=cfg.infer_window_candidates,
+            march_group=cfg.infer_march_group if use_blocks else 1,
+            march_variant=cfg.infer_march_variant,
+            measure=(("block" if use_blocks else "ray") if use_compact
+                     else None), log=self.log)
+        self.march_group = group
+        self.use_prepass = (use_blocks and group == 2
+                            and cfg.infer_march_prepass)
+        self.march_plan = (group, variant, self.use_prepass)
+        if use_compact:
+            self.tables = ensure_variant_tables(
+                self.tables, self.occ.occ, needed_variant_tables(
+                    group, variant, prepass=self.use_prepass))
         self._build_plan(t0)
         self._built = True
 
     def _build_plan(self, t0: float) -> None:
         """The JAX session's _compile_render plan: the ray budget
         budget_frac x the frame in granules, K2, the short/long bucket
-        plan measured once per K2 over the dataset's poses, the eval
-        budget infer_eval_frac x the ray budget, the stage-2 budget
-        infer_stage2_frac x the ray budget in 1024-slot steps; the
-        escapes' overrides take the place of each."""
+        plan measured once per K2 over the dataset's poses (group-2 block
+        path with the prepass), the eval budget infer_eval_frac x the ray
+        budget (block path), the stage-2 budget infer_stage2_frac x the
+        ray budget in 1024-slot steps; the escapes' overrides take the
+        place of each."""
         cfg, s = self.cfg, self.settings
         gran, cap = self.gran, self.frame_cap
         frame = self.H * self.W
@@ -867,7 +933,7 @@ class InferenceSession(_Session):
             gran, int(cfg.budget_frac * frame) // gran * gran))
         self.k2 = k2 = self._k2_override or self.k2_planned
         bucket = None
-        if cfg.infer_march_bucket:
+        if self.use_prepass and cfg.infer_march_bucket:
             if self._bucket_plan is None or self._bucket_plan[0] != k2:
                 k2s, n_short, _, _ = measure_bucket_plan(
                     s, self.tables.z_lo, self.tables.z_hi,
@@ -879,7 +945,7 @@ class InferenceSession(_Session):
             if bs:
                 bucket = (k2s, bs)
         eval_budget = 0
-        if cfg.infer_eval_frac > 0:
+        if self.path == "blocks" and cfg.infer_eval_frac > 0:
             eval_budget = min(budget, self._eval_override or max(
                 gran, int(budget * cfg.infer_eval_frac) // gran * gran))
         self.budget = budget
@@ -889,7 +955,9 @@ class InferenceSession(_Session):
         self.stage2_budget = (
             min(self._stage2_override, budget) if self._stage2_override
             else max(1024, int(budget * cfg.infer_stage2_frac) // 1024 * 1024))
-        self._plan_line(t0, f"from the Config over {len(self.poses)} poses")
+        self._plan_line(t0, f"{self.path} path, march group "
+                        f"{self.march_group}, from the Config over "
+                        f"{len(self.poses)} poses")
 
     # -- audio ---------------------------------------------------------------
 
@@ -933,6 +1001,21 @@ class InferenceSession(_Session):
             n = min(n, max_frames)
         t0 = time.time()
         fmt = getattr(sink, "pix_fmt", "rgb24")
+        if fmt == "yuv420p" and (self.H % 2 or self.W % 2):
+            # 4:2:0 needs even sides: the frame and every sink of the
+            # chain (a wrapper's inner sink too) flip to rgb24 before
+            # they open
+            fmt = "rgb24"
+            s = sink
+            while s is not None:
+                if hasattr(s, "pix_fmt"):
+                    if getattr(s, "proc", None) is not None:
+                        raise RuntimeError(
+                            f"sink already opened as yuv420p but frame size "
+                            f"{self.W}x{self.H} is odd — construct the sink "
+                            "with pix_fmt='rgb24'")
+                    s.pix_fmt = "rgb24"
+                s = getattr(s, "inner", None)
         self.chunk = self._chunk_size()
         if not self._carry:
             self.reset_audio()

@@ -1,6 +1,19 @@
 """Load a trained state without JAX: the one the JAX package writes
 (scripts/train_production.py: trained/production_state.pkl) or the port's
-(lzzx_nerf_tpu_torch/tools/train_production.py).
+(lzzx_nerf_tpu_torch/tools/train_production.py), or the newest checkpoint
+of a workspace the port's CLI trained (load_workspace_state); and carry a
+CLI checkpoint between the two packages (checkpoint_from_jax,
+checkpoint_to_jax).
+
+The port's CLI checkpoint is one pickle per step,
+<workspace>/checkpoints/ckpt_<step:08d>.pkl, with numpy leaves:
+{"state": {"params": {"params": flax tree}, "ema_params": flax tree,
+"step": int32, "opt_state": {"count", "notfinite_count",
+"total_notfinite": int32, "nu": flax tree of second moments}},
+"occ": {OccupancyState field: array}, "generator": {"device", "state"}
+or None}. The flax trees are the JAX package's parameter paths
+(params_to_jax); the first moments are not kept (the optimizer's b1 is
+0, so a step never reads them).
 
 The JAX pickle stores the trees' structure as pickled JAX PyTreeDef
 objects; unpickling them would import jax. _StateUnpickler hands back an
@@ -149,3 +162,188 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[key] = np.array(a, order="C")
     return tree
+
+
+# ---- the CLI's checkpoints ---------------------------------------------
+
+CKPT_PREFIX = "ckpt_"
+
+
+def checkpoint_steps(ckpt_dir: str):
+    """The steps of the checkpoints in ckpt_dir, ascending."""
+    import os
+
+    if not os.path.isdir(ckpt_dir):
+        return []
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        stem, ext = os.path.splitext(name)
+        if (ext == ".pkl" and stem.startswith(CKPT_PREFIX)
+                and stem[len(CKPT_PREFIX):].isdigit()):
+            steps.append(int(stem[len(CKPT_PREFIX):]))
+    return sorted(steps)
+
+
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    import os
+
+    return os.path.join(ckpt_dir, f"{CKPT_PREFIX}{int(step):08d}.pkl")
+
+
+def read_checkpoint(ckpt_dir: str, step=None):
+    """The checkpoint at `step` (default the newest) of ckpt_dir, or None
+    when there is none."""
+    steps = checkpoint_steps(ckpt_dir)
+    if step is None:
+        if not steps:
+            return None
+        step = steps[-1]
+    with open(checkpoint_path(ckpt_dir, step), "rb") as f:
+        return _StateUnpickler(f).load()
+
+
+def load_workspace_state(workspace: str, use_ema: bool = True):
+    """The trained state a workspace serves, in load_trained_state's form:
+    <workspace>/production_state.pkl when present, else the newest CLI
+    checkpoint under <workspace>/checkpoints (the EMA weights unless
+    use_ema is off) with the torso of <workspace>_torso's newest
+    checkpoint and its torso grid, when that workspace has one. meta then
+    holds audio_dim and grid only. None when the workspace has neither."""
+    import os
+
+    prod = os.path.join(workspace, "production_state.pkl")
+    if os.path.exists(prod):
+        return load_trained_state(prod)
+    ck = read_checkpoint(os.path.join(workspace, "checkpoints"))
+    if ck is None:
+        return None
+
+    def weights(c):
+        st = c["state"]
+        tree = st["ema_params"] if use_ema else st["params"]["params"]
+        return {k: v for k, v in tree.items()}
+
+    head = weights(ck)
+    occ = {k: np.asarray(v) for k, v in ck["occ"].items()}
+    torso = None
+    tck = read_checkpoint(os.path.join(workspace.rstrip("/") + "_torso",
+                                       "checkpoints"))
+    if tck is not None:
+        torso = weights(tck)
+        for k in ("density_grid_torso", "mean_density_torso"):
+            occ[k] = np.asarray(tck["occ"][k])
+    audio_dim = int(np.shape(head["audio_net"]["Conv_0"]["kernel"])[1])
+    return {"head": head, "torso": torso, "occ": occ,
+            "meta": {"audio_dim": audio_dim,
+                     "grid": int(np.shape(occ["occ"])[1]),
+                     "step": int(ck["state"]["step"])}}
+
+
+def _is_leaf_array(x) -> bool:
+    return isinstance(x, (np.ndarray, np.generic))
+
+
+def _merge_leaves(dst: Dict[str, Any], src) -> None:
+    """Copy the array leaves of a masked optax tree (MaskedNode leaves
+    are skipped) into dst."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _merge_leaves(dst.setdefault(k, {}), v)
+            if not dst[k]:
+                del dst[k]
+        elif _is_leaf_array(v):
+            dst[k] = np.asarray(v)
+
+
+def checkpoint_from_jax(jck) -> Dict[str, Any]:
+    """The JAX CLI's checkpoint ({"state": TrainState, "occ": dict} as
+    its Trainer saves it, every leaf a numpy array) -> the port's
+    checkpoint payload (module docstring). The optimizer state is read
+    from optax's structure by its field names: apply_if_finite's counters
+    and each parameter group's scale_by_adam count and second moments."""
+    st = jck["state"]
+    opt = st.opt_state
+    groups = opt.inner_state.inner_states
+    nu: Dict[str, Any] = {}
+    count = None
+    for g in groups.values():
+        adam = g.inner_state[0]
+        _merge_leaves(nu, adam.nu)
+        count = int(adam.count)
+    params = st.params
+    return {
+        "state": {
+            "params": {"params": _np_tree(params["params"])},
+            "ema_params": _np_tree(st.ema_params),
+            "step": np.int32(st.step),
+            "opt_state": {"count": np.int32(count or 0),
+                          "notfinite_count": np.int32(opt.notfinite_count),
+                          "total_notfinite": np.int32(opt.total_notfinite),
+                          "nu": nu}},
+        "occ": {k: np.asarray(v) for k, v in dict(jck["occ"]).items()},
+        "generator": None}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _fill_masked(template, values: Dict[str, Any]):
+    """The masked optax tree `template` with each array leaf replaced by
+    the same path's leaf of `values` (MaskedNode leaves stay)."""
+    if isinstance(template, dict):
+        return {k: _fill_masked(v, values.get(k, {}) if isinstance(
+            values, dict) else {}) for k, v in template.items()}
+    if _is_leaf_array(template) or hasattr(template, "shape"):
+        return np.asarray(values, dtype=np.asarray(template).dtype)
+    return template
+
+
+def checkpoint_to_jax(ck: Dict[str, Any], template) -> Dict[str, Any]:
+    """The port's checkpoint payload -> the JAX CLI's {"state": TrainState,
+    "occ": dict}, written into `template` (that payload as the JAX
+    package's TrainState.create and its occupancy build it, any leaves):
+    the parameters, EMA and step, apply_if_finite's counters, and in each
+    parameter group the schedule counts and second moments; the first
+    moments are zeros (they are not kept; with b1 = 0 no step reads
+    them). Imports no JAX: the optax states are filled through their
+    namedtuple _replace."""
+    st = ck["state"]
+    opt = st["opt_state"]
+    count = np.int32(opt["count"])
+    t_state = template["state"]
+    t_opt = t_state.opt_state
+    groups = {}
+    for label, g in t_opt.inner_state.inner_states.items():
+        inner = []
+        for part in g.inner_state:
+            fields = getattr(part, "_fields", ())
+            if "nu" in fields:
+                part = part._replace(
+                    count=count,
+                    mu=_fill_masked(part.mu, _zeros_like_tree(opt["nu"])),
+                    nu=_fill_masked(part.nu, opt["nu"]))
+            elif "count" in fields:
+                part = part._replace(count=count)
+            inner.append(part)
+        groups[label] = g._replace(inner_state=tuple(inner))
+    new_opt = t_opt._replace(
+        notfinite_count=np.int32(opt["notfinite_count"]),
+        total_notfinite=np.int32(opt["total_notfinite"]),
+        last_finite=np.asarray(True),
+        inner_state=t_opt.inner_state._replace(inner_states=groups))
+    params = dict(t_state.params)
+    params["params"] = _np_tree(st["params"]["params"])
+    state = t_state.replace(params=params,
+                            ema_params=_np_tree(st["ema_params"]),
+                            step=np.int32(st["step"]), opt_state=new_opt)
+    return {"state": state,
+            "occ": {k: np.asarray(v) for k, v in ck["occ"].items()}}
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return np.zeros_like(np.asarray(tree))

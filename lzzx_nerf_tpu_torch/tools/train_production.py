@@ -71,12 +71,13 @@ from ..render.renderer import run_torso
 from ..render.state import (OccupancyState, RenderSettings,
                             init_occupancy_state)
 from ..serving.state_io import (TORSO_LEAF_PATHS, flatten_paths,
-                                params_from_jax, params_to_jax)
+                                params_to_jax)
 from ..train import lpips as lpips_mod
 from ..train.metrics import psnr
 from ..train.optim import HeadOptimizer
-from ..train.trainer import (TrainState, make_eval_step,
-                             make_torso_train_step, make_train_step)
+from ..train.trainer import (TrainState, checkpoint_payload,
+                             make_eval_step, make_torso_train_step,
+                             make_train_step, restore_payload, to_device)
 from ..utils.device import resolve_device
 from ..utils.rays import get_bg_coords
 
@@ -94,32 +95,12 @@ def save_pickle(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
-def _to_device(frame: Dict, dev) -> Dict:
-    return {k: (int(v) if k == "index"
-                else torch.as_tensor(np.array(v), device=dev))
-            for k, v in frame.items()}
-
-
 def _state_checkpoint(state: TrainState, occ: OccupancyState, it: int,
                       gen: torch.Generator) -> Dict:
     """A stage's checkpoint in the JAX script's layout ({"state", "occ",
     "it"}, numpy leaves, the parameters as the JAX package's flax tree),
     plus the step generator's state."""
-    opt = state.opt.state_dict()
-    return {
-        "state": {
-            "params": {"params": params_to_jax(
-                dict(state.field.named_parameters()))},
-            "ema_params": params_to_jax(state.ema),
-            "step": np.int32(state.step),
-            "opt_state": {
-                **{k: np.int32(opt[k].item()) for k in (
-                    "count", "notfinite_count", "total_notfinite")},
-                "nu": params_to_jax(opt["nu"])}},
-        "occ": {k: v.cpu().numpy() for k, v in occ._asdict().items()},
-        "it": it,
-        "generator": {"device": gen.device.type,
-                      "state": gen.get_state().numpy()}}
+    return {**checkpoint_payload(state, occ, gen), "it": it}
 
 
 class HeadRun:
@@ -163,7 +144,7 @@ class HeadRun:
                                             train_budget=self.budget,
                                             **self.common)
         self.refresh = make_density_grid_update(self.field, s)
-        self.frames = [_to_device(self.ds.frame(i), dev)
+        self.frames = [to_device(self.ds.frame(i), dev)
                        for i in range(frames)]
         self.eval_res = eval_res
         self.ds_eval = SyntheticTalkingHead(num_frames=frames, H=eval_res,
@@ -202,7 +183,7 @@ class HeadRun:
         frames against the oracle."""
         vals = []
         for fi in self.eval_frames:
-            b = _to_device(self.ds_eval.frame(fi), self.device)
+            b = to_device(self.ds_eval.frame(fi), self.device)
             img = self.eval_step(self.state, self.occ, b)["image"]
             vals.append(float(psnr(img, b["image"])))
         return float(np.mean(vals)), [round(v, 2) for v in vals]
@@ -211,31 +192,13 @@ class HeadRun:
         """ckpt_head.pkl's payload."""
         return _state_checkpoint(self.state, self.occ, it, self.gen)
 
-    @torch.no_grad()
     def restore(self, ck: Mapping) -> int:
         """Load a checkpoint() payload: parameters, EMA, step count,
         optimizer counters and moments, occupancy state and, when it was
         written on this device type, the generator's state (else the
         seeded stream goes on, with a warning). Returns its iteration."""
-        st = ck["state"]
-        self.field.load_state_dict(params_from_jax(st["params"]))
-        ema = params_from_jax(st["ema_params"])
-        for n, e in self.state.ema.items():
-            e.copy_(ema[n])
-        self.state.step = int(st["step"])
-        opt = dict(st["opt_state"])
-        opt["nu"] = params_from_jax(opt["nu"])
-        self.opt.load_state_dict(opt)
-        self.occ = OccupancyState(**{
-            k: torch.as_tensor(np.asarray(v), device=self.device)
-            for k, v in ck["occ"].items()})
-        g = ck.get("generator")
-        if g is not None and g["device"] == self.device.type:
-            self.gen.set_state(torch.as_tensor(g["state"]))
-        else:
-            self.log("[WARN] the checkpoint's generator state is for "
-                     f"{g['device'] if g else 'no device'}; the draws go "
-                     f"on from seed {self.seed + 1}")
+        self.occ = restore_payload(self.state, ck, self.device, self.gen,
+                                   log=self.log)
         return int(ck["it"])
 
 

@@ -9,6 +9,7 @@ Groups (param_label_fn, the JAX package's rule):
   grid  (triplane tables):  lr,          weight decay 0.01
   att   (audio_att_net):    lr_net * 5,  weight decay 1e-4
   net   (everything else):  lr_net,      weight decay 0
+  camera (camera_dR/dT):    1e-5,        weight decay 0, no schedule
 All groups: b1 = 0, b2 = 0.99, eps 1e-8, decay decoupled as in
 optax.adamw, lr(count) = base * rate ** (count / iters), unclamped, with
 rate 0.5 (0.05 for the lips finetune).
@@ -68,16 +69,12 @@ class HeadOptimizer:
         self.max_consecutive_errors = max_consecutive_errors
         self.log = log
         hyper = {"grid": (lr, 0.01), "att": (lr_net * 5, 1e-4),
-                 "net": (lr_net, 0.0)}
+                 "net": (lr_net, 0.0), "camera": (1e-5, 0.0)}
         self.groups: Dict[str, dict] = {}
         self.names: List[str] = []
         dev = None
         for name, p in named_params:
             label = param_label_fn(name)
-            if label not in hyper:
-                raise NotImplementedError(
-                    f"{name}: the camera group (train_camera) is not "
-                    "ported yet")
             g = self.groups.setdefault(label, {
                 "lr": hyper[label][0], "wd": hyper[label][1],
                 "names": [], "params": [], "nu": []})
@@ -127,8 +124,11 @@ class HeadOptimizer:
         # float32 like optax: b2 ** count and base * rate ** (count / iters)
         bc = 1.0 - torch.pow(B2, count_inc.to(torch.float32))
         lr_f = self.lr_factor(self.count)
-        for g in self.groups.values():
-            neg_lr = -(lr_f * g["lr"])
+        for label, g in self.groups.items():
+            # the camera group's learning rate is constant (optax.adamw
+            # with a float rate)
+            neg_lr = (-g["lr"] if label == "camera"
+                      else -(lr_f * g["lr"]))
             for p, x, nu in zip(g["params"], grads[id(g)], g["nu"]):
                 nu_new = (1.0 - B2) * (x * x) + B2 * nu
                 u = x / (torch.sqrt(nu_new / bc) + EPS)

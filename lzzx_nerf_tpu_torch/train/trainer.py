@@ -31,6 +31,7 @@ from ..models.nerf import NeRFField, TorsoField
 from ..render.renderer import (render_rays, render_rays_train_compact,
                                run_torso)
 from ..render.state import OccupancyState, RenderSettings
+from ..utils.pose import camera_refinement
 from ..utils.rays import get_bg_coords, get_rays
 from . import lpips as lpips_mod
 from .losses import head_losses, torso_losses
@@ -136,14 +137,16 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
     "noise" [N], the march lattice jitter; "eye_jitter" (eye's shape), the
     blink jitter (u - 0.5) / 10; "reg_delta" [M, 3] over the step's M
     samples, the regulariser's jitter (u * 2 - 1) * 1e-3."""
-    later = {"patch_size > 1": patch_size > 1, "train_camera": train_camera,
-             "data_parallel": data_parallel,
-             "train_stage_split": train_stage_split > 0}
-    for what, on in later.items():
+    later = {"patch_size > 1": (patch_size > 1, 5),
+             "data_parallel": (data_parallel, 7),
+             "train_stage_split": (train_stage_split > 0, 5)}
+    for what, (on, item) in later.items():
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet (a later slice of the training "
-                "port)")
+                f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+    if train_camera and not hasattr(field, "camera_dR"):
+        raise ValueError("train_camera needs a field built with "
+                         "camera_frames > 0")
     dev = next(field.parameters()).device
     aabb = torch.tensor(settings.aabb, dtype=torch.float32, device=dev)
     S = settings.max_steps
@@ -170,6 +173,12 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                              device=dev))
         rays = get_rays(batch["pose"][None], intrinsics, H, W, inds=inds)
         rays_o, rays_d = rays["rays_o"][0], rays["rays_d"][0]
+        if train_camera:
+            # the frame's learned pose refinement, trained with the step
+            dR, dT = camera_refinement(field.camera_dR, field.camera_dT,
+                                       batch["index"])
+            rays_o = rays_o + dT
+            rays_d = rays_d @ dR
         gt = batch["image"].reshape(-1, 3).index_select(0, inds)
         face = batch["face_mask"].reshape(-1).index_select(0, inds)
         bg = batch["bg_color"].reshape(-1, 3).index_select(0, inds)
@@ -338,3 +347,151 @@ def make_torso_train_step(torso: TorsoField, settings: RenderSettings, *,
                 "grad_notfinite": state.opt.total_notfinite}
 
     return step_fn
+
+
+def to_device(frame: Mapping, dev) -> Dict:
+    """A dataset frame (numpy arrays) as the step's batch on `dev`; the
+    frame index stays a Python int."""
+    return {k: (int(v) if k == "index"
+                else torch.as_tensor(np.array(v), device=dev))
+            for k, v in frame.items()}
+
+
+def checkpoint_payload(state: TrainState, occ: OccupancyState,
+                       generator: Optional[torch.Generator] = None) -> Dict:
+    """A stage's checkpoint (serving/state_io.py's layout): parameters,
+    EMA and second moments as the JAX package's flax trees, the step and
+    the optimizer's counters, the occupancy state, and the step
+    generator's state, so a resumed run draws what an unbroken one
+    would."""
+    from ..serving.state_io import params_to_jax
+
+    opt = state.opt.state_dict()
+    return {
+        "state": {
+            "params": {"params": params_to_jax(
+                dict(state.field.named_parameters()))},
+            "ema_params": params_to_jax(state.ema),
+            "step": np.int32(state.step),
+            "opt_state": {
+                **{k: np.int32(opt[k].item()) for k in (
+                    "count", "notfinite_count", "total_notfinite")},
+                "nu": params_to_jax(opt["nu"])}},
+        "occ": {k: v.detach().cpu().numpy()
+                for k, v in occ._asdict().items()},
+        "generator": (None if generator is None else
+                      {"device": generator.device.type,
+                       "state": generator.get_state().numpy()})}
+
+
+@torch.no_grad()
+def restore_payload(state: TrainState, ck: Mapping, device,
+                    generator: Optional[torch.Generator] = None,
+                    log=print) -> OccupancyState:
+    """Load checkpoint_payload's dict into `state` (parameters, EMA, step,
+    optimizer counters and moments) and `generator` (when the checkpoint
+    holds the state of a generator of this device type; else the seeded
+    stream goes on, with a warning). Returns the occupancy state."""
+    from ..serving.state_io import params_from_jax
+
+    st = ck["state"]
+    state.field.load_state_dict(params_from_jax(st["params"]))
+    ema = params_from_jax(st["ema_params"])
+    for n, e in state.ema.items():
+        e.copy_(ema[n])
+    state.step = int(st["step"])
+    opt = dict(st["opt_state"])
+    opt["nu"] = params_from_jax(opt["nu"])
+    state.opt.load_state_dict(opt)
+    if generator is not None:
+        g = ck.get("generator")
+        if g is not None and g["device"] == generator.device.type:
+            generator.set_state(torch.as_tensor(g["state"]))
+        else:
+            log("[WARN] the checkpoint holds no generator state for "
+                f"{generator.device.type}; the draws go on from the seed")
+    return OccupancyState(**{
+        k: torch.as_tensor(np.asarray(v), device=device)
+        for k, v in ck["occ"].items()})
+
+
+class Trainer:
+    """A workspace's host side (the JAX package's Trainer): the log
+    (<workspace>/log_ngp.txt), tensorboard scalars (tensorboardX when it
+    is installed, silently off otherwise) and checkpoints, one pickle per
+    step under <workspace>/checkpoints/ (serving/state_io.py's layout),
+    the newest max_keep_ckpt kept. A checkpoint is written to a
+    per-process temporary name and renamed into place."""
+
+    def __init__(self, workspace: str, max_keep_ckpt: int = 2):
+        import os
+
+        self.workspace = workspace
+        os.makedirs(workspace, exist_ok=True)
+        self.log_path = os.path.join(workspace, "log_ngp.txt")
+        self.ckpt_dir = os.path.join(os.path.abspath(workspace),
+                                     "checkpoints")
+        self.max_keep_ckpt = max_keep_ckpt
+        self._tb = None
+        self.last_extra = None
+
+    def log(self, *args) -> None:
+        msg = " ".join(str(a) for a in args)
+        print(msg, flush=True)
+        with open(self.log_path, "a") as f:
+            f.write(msg + "\n")
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._tb is None:
+            try:
+                import os
+
+                from tensorboardX import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(self.workspace, "run"))
+            except ImportError:
+                self._tb = False
+        if self._tb:
+            self._tb.add_scalar(tag, value, step)
+
+    def save_checkpoint(self, state: TrainState, occ: OccupancyState,
+                        generator: Optional[torch.Generator] = None,
+                        extra: Optional[Dict] = None) -> str:
+        """Write the step's checkpoint (with `extra`, any picklable
+        run state, under "extra") and drop all but the newest
+        max_keep_ckpt."""
+        import os
+        import pickle
+
+        from ..serving.state_io import checkpoint_path, checkpoint_steps
+
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        path = checkpoint_path(self.ckpt_dir, state.step)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            ck = checkpoint_payload(state, occ, generator)
+            if extra is not None:
+                ck["extra"] = extra
+            pickle.dump(ck, f)
+        os.replace(tmp, path)
+        steps = checkpoint_steps(self.ckpt_dir)
+        for old in steps[:max(0, len(steps) - self.max_keep_ckpt)]:
+            os.remove(checkpoint_path(self.ckpt_dir, old))
+        return path
+
+    def load_checkpoint(self, state: TrainState, occ: OccupancyState,
+                        generator: Optional[torch.Generator] = None,
+                        step: Optional[int] = None):
+        """Restore the newest (or the given step's) checkpoint into
+        `state` and `generator` -> (state, occ, restored); restored is
+        False, and occ unchanged, when there is none. The checkpoint's
+        "extra" is kept as self.last_extra."""
+        from ..serving.state_io import read_checkpoint
+
+        ck = read_checkpoint(self.ckpt_dir, step)
+        self.last_extra = None if ck is None else ck.get("extra")
+        if ck is None:
+            return state, occ, False
+        dev = next(state.field.parameters()).device
+        occ = restore_payload(state, ck, dev, generator, log=self.log)
+        return state, occ, True

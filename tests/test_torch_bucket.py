@@ -98,8 +98,10 @@ def scene():
                                          variants=("nb5w", "dil"))
     ttables = tm2.build_inference_tables(_t(occ), 1.0)
     pose = _pose()
-    k2 = tm2.resolve_march_plan(tset, ttables.z_lo, ttables.z_hi,
-                                pose[None], INTR, H, W, log=lambda m: None)
+    k2, _, _ = tm2.resolve_march_plan(
+        tset, ttables.z_lo, ttables.z_hi, pose[None], INTR, H, W,
+        march_group=2, march_variant="nb5wp", measure="block",
+        log=lambda m: None)
     rng = np.random.default_rng(12)
     auds = rng.standard_normal((8, 16, 29)).astype(np.float32)
     jfield = JField(audio_in_dim=29, ind_num=64)

@@ -266,8 +266,9 @@ def test_host_planners():
                                 march_group=2, march_variant="nb5wp",
                                 measure="block", log=lambda m: None)
     tk = tm2.resolve_march_plan(TRS(**kw), tl, th, poses, intr, 64, 64,
-                                log=lambda m: None)
-    assert jk[1:] == (2, "nb5wp") and tk == jk[0]
+                                march_group=2, march_variant="nb5wp",
+                                measure="block", log=lambda m: None)
+    assert jk[1:] == (2, "nb5wp") and tk == jk
     assert tm2.window_candidates_for_scene(tl.numpy(), th.numpy(), dt) == \
         jm2.window_candidates_for_scene(np.asarray(jl), np.asarray(jh), dt)
     assert tm2.default_window_candidates(1.0, 32, dt) == \

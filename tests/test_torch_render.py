@@ -160,8 +160,10 @@ def slice64():
     ttorso = TTorso(ind_dim_torso=8, ind_num=64)
     ttorso.load_state_dict(params_from_jax(st["torso"]))
     ttables = tm2.build_inference_tables(tocc.occ, 1.0)
-    tk2 = tm2.resolve_march_plan(tset, ttables.z_lo, ttables.z_hi,
-                                 pose[None], intr, H, W, log=lambda m: None)
+    tk2, _, _ = tm2.resolve_march_plan(
+        tset, ttables.z_lo, ttables.z_hi, pose[None], intr, H, W,
+        march_group=2, march_variant="nb5wp", measure="block",
+        log=lambda m: None)
     enc_a = tfield.encode_audio(_t(auds))
     trays = t_get_rays(_t(pose)[None], intr, H, W)
     tplan = t_torso_plan(tset, tocc, t_bg_coords(H, W)[0])

@@ -18,7 +18,8 @@ is what the port serves. Both sessions run on the same seeded features:
   tests, held on the port);
 - a head-only state serves over the dataset's background (the trained
   state's torso: tests/test_torch_serving_api.py);
-- every plan the port has no path for raises, naming its ROADMAP item.
+- the plans of the fallback paths serve; every plan the port has no
+  path for raises, naming its ROADMAP item.
 
 Stage-2 budget: infer_stage2_frac 1.0 at ray budgets in whole 1024-slot
 steps, so the JAX session never truncates stage 2 (where the port's
@@ -290,14 +291,30 @@ def test_head_only_serves_over_dataset_background(blob):
     assert np.abs(fc - fw).mean() > 5.0
 
 
+@pytest.mark.parametrize("kw,path,group", [
+    (dict(bound=2.0), "full", 1),
+    (dict(infer_block=1), "compact", 1),
+    (dict(infer_march_group=1), "blocks", 1),
+    (dict(infer_stage_split=0), "blocks", 2),
+    (dict(train_camera=True), "blocks", 2),
+])
+def test_ported_plans_serve(blob, kw, path, group):
+    """The plans a session refused before their paths were ported:
+    cascade 2 (render_rays), per-ray windows (render_rays_compact), the
+    group-1 march, the single-pass composite, and train_camera (a state
+    without camera parameters serves unrefined, as in the JAX session)."""
+    data, ws = blob
+    s = _port(data, ws, infer_window_candidates=40, budget_frac=1.0, **kw)
+    assert (s.path, s.march_group) == (path, group)
+    assert s.settings.cascade == (2 if "bound" in kw else 1)
+    got = _run(s, _feats(2, 4))
+    assert sorted(got) == [0, 1]
+    assert all(b.shape == (64 * 64 * 3,) for b in got.values())
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(bound=2.0), "item 4"),
-    (dict(infer_block=1), "item 4"),
-    (dict(infer_march_group=1), "item 4"),
     (dict(infer_march_group=3), "item 8"),
-    (dict(infer_stage_split=0), "item 4"),
     (dict(infer_sample_frac=0.5), "item 8"),
-    (dict(train_camera=True), "item 5"),
     (dict(infer_data_parallel=2), "item 7"),
     (dict(infer_march_variant="quadw"), "item 8"),
     (dict(infer_march_prepass=False), "item 8"),
@@ -321,16 +338,15 @@ def test_load_model_refusals(blob, tmp_path):
     s = InferenceSession(Config(**BASE), device="cpu", log=_quiet)
     with pytest.raises(RuntimeError, match="load_model first"):
         s.set_audio_features(_feats(2, 0))
-    # a wide field of view at 40²: the block march's drift envelope is
-    # exceeded, where the JAX session steps down to the per-ray march
+    # a wide field of view at 40² exceeds the block march's drift
+    # envelope: the session steps down to the per-ray march; an odd frame
+    # takes the per-ray compact render (both once refused here)
     from conftest import make_toy_dataset
 
     wide = make_toy_dataset(tmp_path / "wide", H=40, W=40, focal_mult=1.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _port(wide, ws)
+    assert _port(wide, ws).march_plan == (1, "nb5w", False)
     odd = make_toy_dataset(tmp_path / "odd", H=41, W=40, focal_mult=4.0)
-    with pytest.raises(NotImplementedError, match="odd"):
-        _port(odd, ws)
+    assert _port(odd, ws).path == "compact"
 
 
 def test_eye_follows_fix_eye_and_mirror_index(blob):

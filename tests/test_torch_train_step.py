@@ -419,8 +419,7 @@ def test_eval_step_with_ema_weights(world):
 
 def test_step_refuses_unported_options(world):
     w = world
-    for kw in ({"patch_size": 4},
-               {"train_camera": True}, {"data_parallel": True},
+    for kw in ({"patch_size": 4}, {"data_parallel": True},
                {"train_stage_split": 4}):
         with pytest.raises(NotImplementedError):
             _port(w, 0, **kw)
