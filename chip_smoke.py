@@ -114,7 +114,32 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      rise); --test --torso in this process with every kernel launch held
      and the launches counted, then timed (frames/s); an InferenceSession
      serves the CLI's workspace (its newest checkpoint and _torso) with
-     both kernels launching.
+     both kernels launching; the head stage once more with --fp16 0
+     (float32) for its rate beside the default bf16 one;
+ 19. fp16 (after [train]): one bf16 head step (the CLI's field under
+     --fp16) at step 32, 48², grid 32, on the card and on the CPU from one
+     seeded init and the same draws, held to tests/test_torch_fp16.py's
+     step tolerance;
+ 20. mesh: --save_mesh 1 on [cli]'s workspace at the default 256³: the
+     density queries' seconds on the card, the host marcher's, the vertex
+     and face counts; one chunk of 65,536 queries card vs CPU;
+ 21. asr: --asr 1 on [cli]'s workspace, a seeded 10 s wav through a
+     stand-in CTC model (29 logits at 50 Hz; no ASR weights are in the
+     repository): an eager run at whole-frame budgets with every kernel
+     launch held and counted, its raw frames byte-equal to
+     InferenceSession.run() over the saved features (--asr_save_feats);
+     an eager held run at the Config's budgets, its frame count equal to
+     run()'s there and the frames that differ listed; then the default
+     captured run at the Config's budgets timed, its launch counts added
+     to the main path's in the kernels line;
+ 22. preprocess: the stand-in identity of tools/synthetic_face.py (BFM
+     widths, 100 frames at 512², .lms, a TorchScript parser); tasks 4, 5,
+     6, 8, 9 as `python -m lzzx_nerf_tpu_torch.preprocess.process`
+     processes on the card (task 8 uncut: the reference's nine focals),
+     tasks 1 and 3 when ffmpeg is on the PATH, task 2 through a stand-in
+     HuBERT; the tracker's stage seconds, steps/s and peak memory, its
+     recovery of the ground truth at tests/test_face_tracking.py's
+     thresholds, and the dataset loaded by the port's provider.
 Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
 line.
 """
@@ -127,6 +152,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1363,7 +1389,8 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
     (tools/dataset.py); the CLI's head stage (CLI_HEAD[0] iterations,
     then resumed to CLI_HEAD[1], compacted from CLI_WARMUP on), the lips
     finetune to CLI_LIPS and the torso stage (CLI_TORSO) as `python -m
-    lzzx_nerf_tpu_torch.cli` processes; --test --torso in this process
+    lzzx_nerf_tpu_torch.cli` processes, and the head stage again with
+    --fp16 0 (float32) for its rate; --test --torso in this process
     twice, once with every kernel launch held to its plain version and
     the launch counts read, once timed; then an InferenceSession serves
     the CLI's workspace -> (ok, report lines). res / extra (more CLI
@@ -1388,8 +1415,13 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
             *extra]
     lines.append(f"[cli] oracle dataset at {res}², 32 frames "
                  f"({time.perf_counter() - t0:.1f} s)")
+    # the head stage computes in bf16 under --fp16 (the Config's default,
+    # as in JAX); "head fp16 0" trains the same steps in float32 into a
+    # workspace of its own, for the rate of each
     stages = [
         ("head", base + ["--iters", str(CLI_HEAD[0])], CLI_HEAD[0]),
+        ("head fp16 0", base + ["--iters", str(CLI_HEAD[0]), "--workspace",
+                                ws + "_f32", "--fp16", "0"], CLI_HEAD[0]),
         ("head resumed", base + ["--iters", str(CLI_HEAD[1])],
          CLI_HEAD[1] - CLI_HEAD[0]),
         ("lips", base + ["--iters", str(CLI_LIPS), "--finetune_lips", "1",
@@ -1397,9 +1429,11 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
         ("torso", base + ["--torso", "1", "--workspace", ws + "_torso",
                           "--iters", str(CLI_TORSO)], CLI_TORSO)]
     ok = True
+    rates = {}
     for name, args, steps in stages:
         rc, sec, out = _cli(args)
         its = re.findall(r"\(([0-9.]+) it/s\)", out)
+        rates[name] = (its, steps / sec)
         evals = re.findall(r"\[eval\] epoch \d+: PSNR = ([0-9.]+)", out)
         s_ok = rc == 0 and ("training done" in out)
         if name == "head resumed":
@@ -1412,6 +1446,13 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
             f"{'OK' if s_ok else 'FAIL'}")
         if not s_ok:
             lines += [f"[cli]   {ln}" for ln in out.splitlines()[-15:]]
+    lines.append(
+        f"[fp16] the CLI's head stage, {CLI_HEAD[0]} steps at 512², grid "
+        f"128: --fp16 1 (bf16 compute, the default) logged "
+        f"{rates['head'][0]} it/s ({rates['head'][1]:.2f} steps/s with "
+        f"process start and evals); --fp16 0 (float32) logged "
+        f"{rates['head fp16 0'][0]} it/s ({rates['head fp16 0'][1]:.2f} "
+        f"steps/s) [{smi}]")
     with open(os.path.join(ws, "log_ngp.txt")) as f:
         log_text = f.read()
     head_evals = [float(v) for v in re.findall(
@@ -1497,6 +1538,606 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
         f"({time.perf_counter() - t1:.1f} s)")
     del sess
     torch.cuda.empty_cache()
+    return ok, lines
+
+
+# ---- this slice: bf16 under --fp16, --save_mesh, --asr, preprocessing
+
+# tests/test_torch_fp16.py's step tolerance: the loss, and every
+# parameter's gradient in relative L2 norm (bf16 sums rounded in other
+# orders by cuBLAS / cuDNN and by the CPU)
+FP16_LOSS_RTOL = 2e-5
+FP16_GRAD_L2 = 3e-2
+# one density chunk of --save_mesh, card vs CPU, both bf16: h = log sigma
+# within two bf16 ulps of the CPU's (2^-7 of max(|h|, 1))
+MESH_H_TOL = 2.0 ** -7
+MESH_CHUNK = 65536
+# [asr]: the seeded wav's length, and the HF-style id of the stand-in CTC
+# model (a name with "deepspeech" selects 29 logits)
+ASR_SECONDS = 10.0
+ASR_MODEL_ID = "standin/deepspeech-ctc"
+# [preprocess]: frames of the stand-in clip at 512²; the tracker's steps
+# per stage: the focal search over the reference's nine focals
+# (600..1400) x (2,000 + 2,500), 1,500 + 2,000, 300, 1,000
+PRE_FRAMES = 100
+TRACK_STEPS = {"focal": 9 * (2000 + 2500), "coarse": 3500, "light": 300,
+               "fine": 1000}
+# tests/test_face_tracking.py's recovery thresholds
+TRACK_LMS_PX, TRACK_TRANS = 2.0, 0.35
+
+
+def fp16_parity(dev) -> tuple:
+    """One bf16 head step (the CLI's field under --fp16) at step 32, 48²,
+    grid 32, 1,024 rays, S 8 on `dev` and on the CPU from one seeded init
+    and the same draws: the loss within FP16_LOSS_RTOL and every gradient
+    within FP16_GRAD_L2 in relative L2 norm -> (ok, report line)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import (SyntheticTalkingHead,
+                                          two_blob_occupancy)
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.render import (RenderSettings,
+                                            init_occupancy_state)
+    from lzzx_nerf_tpu_torch.train import (HeadOptimizer, TrainState,
+                                           make_train_step)
+
+    G, R, N, S, STEP = 32, 48, 1024, 8, 32
+    ds = SyntheticTalkingHead(num_frames=8, H=R, W=R)
+    settings = RenderSettings(bound=1.0, cascade=1, grid_size=G,
+                              max_steps=S, dt=2 * 3 ** 0.5 / G, num_cand=28)
+    init = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    frame = ds.frame(0)
+    g = torch.Generator().manual_seed(1)
+    draws = {"inds": torch.randint(0, R * R, (N,), generator=g),
+             "noise": torch.rand((N,), generator=g),
+             "eye_jitter": torch.rand((1,), generator=g),
+             "reg_delta": torch.rand((N * S, 3), generator=g)}
+
+    def build(d):
+        field = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64,
+                          dtype=torch.bfloat16).to(d)
+        field.load_state_dict(init)
+        st = TrainState.create(field, HeadOptimizer(
+            field.named_parameters(), 1e-2, 1e-3, 100))
+        st.step = STEP
+        occ = init_occupancy_state(settings, d)._replace(
+            occ=two_blob_occupancy(G, d))
+        step = make_train_step(field, settings, H=R, W=R,
+                               intrinsics=ds.intrinsics, num_rays=N,
+                               iters=100)
+        b = {k: int(v) if k == "index" else
+             torch.as_tensor(np.array(v), device=d) for k, v in frame.items()}
+        m = step(st, occ, b, draws=draws)
+        return float(m["loss"]), _grads_of(field)
+
+    (l_cpu, g_cpu), (l_dev, g_dev) = (build(torch.device("cpu")),
+                                      build(dev))
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    l2 = {n: float(np.linalg.norm(g_dev[n] - ref)
+                   / max(np.linalg.norm(ref), 1e-30))
+          for n, ref in g_cpu.items()}
+    worst = max(l2.items(), key=lambda kv: kv[1])
+    ok = loss_err <= FP16_LOSS_RTOL and worst[1] <= FP16_GRAD_L2
+    return ok, (
+        f"[fp16] card vs CPU, a bf16 head step {STEP} (48², grid 32, {N} "
+        f"rays, S {S}): loss {l_dev:.7f} vs {l_cpu:.7f} (rel err "
+        f"{loss_err:.2e}, tol {FP16_LOSS_RTOL}); largest gradient relative "
+        f"L2 {worst[1]:.2e} ({worst[0]}, tol {FP16_GRAD_L2}) "
+        f"{'OK' if ok else 'FAIL'}")
+
+
+def _oracle_paths(root: str) -> tuple:
+    """[cli]'s dataset and head workspace under root."""
+    return os.path.join(root, "oracle"), os.path.join(root, "trial_oracle")
+
+
+def mesh_phase(dev, root: str, smi: str, resolution: int = 256,
+               extra: tuple = ()) -> tuple:
+    """[mesh]: --save_mesh 1 on [cli]'s workspace (the CLI's bf16 field,
+    the newest checkpoint) at `resolution`³: the density queries' seconds
+    on the card, the host marcher's, the vertex and face counts; then one
+    chunk of MESH_CHUNK points held against the same field on the CPU ->
+    (ok, report lines). extra: more CLI flags (a CPU rehearsal)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import cli
+    from lzzx_nerf_tpu_torch.data.provider import NeRFDataset
+    from lzzx_nerf_tpu_torch.train.optim import HeadOptimizer
+    from lzzx_nerf_tpu_torch.train.trainer import Trainer, TrainState
+
+    data, ws = _oracle_paths(root)
+    argv = [data, "--workspace", ws, "--asr_model", "deepspeech",
+            "--save_mesh", "1", "--mesh_resolution", str(resolution),
+            *extra]
+    cfg, _ = cli.parse_args(argv)
+    t0 = time.perf_counter()
+    got = cli.run_save_mesh(cfg, dev)
+    torch_sync(dev)
+    total = time.perf_counter() - t0
+    ply_ok = os.path.exists(got["path"]) and got["faces"] > 0
+    lines = [
+        f"[mesh] {resolution}³ = {resolution ** 3:,} density queries "
+        f"(chunks of 65,536, bf16 field under --fp16) "
+        f"{got['query_seconds']:.2f} s on the card, host marcher "
+        f"{got['march_seconds']:.2f} s, "
+        f"{total:.2f} s in all; {got['verts']} vertices, {got['faces']} "
+        f"faces -> {os.path.relpath(got['path'], root)} (step "
+        f"{got['step']}) [{smi}] {'OK' if ply_ok else 'FAIL'}"]
+
+    # one chunk, card vs CPU
+    ds = NeRFDataset(cfg, type="train")
+    pts = torch.rand((MESH_CHUNK, 3), generator=torch.Generator()
+                     .manual_seed(7)) * 2 - 1
+    sig = {}
+    for d in (torch.device("cpu"), dev):
+        _, occ, field = cli._build_world(cfg, ds, d)
+        st = TrainState.create(field, HeadOptimizer(field.named_parameters()))
+        Trainer(ws).load_checkpoint(st, occ)
+        b0 = ds.frame(0)
+        with torch.no_grad():
+            enc = field.encode_audio(torch.as_tensor(b0["auds"], device=d))
+            eye = torch.as_tensor(b0["eye"], dtype=torch.float32, device=d)
+            sig[d.type] = field.density(
+                pts.to(d), enc, eye,
+                packed=field.bake_train_tables()).sigma.cpu().double()
+    h_cpu, h_dev = torch.log(sig["cpu"]), torch.log(sig[dev.type])
+    dh = (h_dev - h_cpu).abs()
+    tol = MESH_H_TOL * torch.clamp(h_cpu.abs(), min=1.0)
+    eq = float((sig[dev.type] == sig["cpu"]).double().mean())
+    c_ok = bool((dh <= tol).all()) and bool(torch.isfinite(h_dev).all())
+    lines.append(
+        f"[mesh] one chunk of {MESH_CHUNK} density queries, card vs CPU "
+        f"(bf16 both): max |log sigma diff| {float(dh.max()):.3g} (largest "
+        f"share of tol {float((dh / tol).max()):.3f}, tol 2^-7 of "
+        f"max(|log sigma|, 1)), {eq:.4f} of sigmas bit-equal "
+        f"{'OK' if c_ok else 'FAIL'}")
+    return ply_ok and c_ok, lines
+
+
+class _StandinProcessor:
+    """The stand-in CTC model's processor: the samples as a [1, n]
+    tensor."""
+
+    @staticmethod
+    def from_pretrained(name):
+        return _StandinProcessor()
+
+    def __call__(self, samples, sampling_rate=16000, return_tensors="pt",
+                 padding=False):
+        import types
+
+        import numpy as np
+        import torch
+
+        x = torch.from_numpy(np.asarray(samples, np.float32))[None]
+        return types.SimpleNamespace(input_values=x)
+
+
+def _standin_ctc():
+    """A stand-in of a wav2vec2-CTC model (no weights in the repository):
+    a fixed-seed torch module that maps each 320-sample (20 ms) frame to
+    29 logits, i.e. 29 logits at 50 Hz, on whatever device it is moved
+    to."""
+    import types
+
+    import torch
+
+    class StandinCTC(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(0)
+            self.w = torch.nn.Parameter(torch.randn(320, 29, generator=g)
+                                        * 0.1)
+
+        @staticmethod
+        def from_pretrained(name):
+            return StandinCTC()
+
+        def forward(self, x):
+            n = x.shape[1] // 320
+            return types.SimpleNamespace(
+                logits=(x[0, :n * 320].reshape(n, 320) @ self.w)[None])
+
+    mod = types.ModuleType("transformers")
+    mod.AutoProcessor = _StandinProcessor
+    mod.AutoModelForCTC = StandinCTC
+    return mod
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _spans(idx: list) -> str:
+    """[8, 9, 10, 12] -> '8-10, 12' ('none' when empty)."""
+    out, start = [], None
+    for k, i in enumerate(idx):
+        if start is None:
+            start = i
+        if k + 1 == len(idx) or idx[k + 1] != i + 1:
+            out.append(f"{start}-{i}" if i > start else f"{i}")
+            start = None
+    return ", ".join(out) or "none"
+
+
+def _frames_differ(a: bytes, b: bytes, frame_bytes: int) -> list:
+    n = min(len(a), len(b)) // frame_bytes
+    return [i for i in range(n) if a[i * frame_bytes:(i + 1) * frame_bytes]
+            != b[i * frame_bytes:(i + 1) * frame_bytes]]
+
+
+def asr_phase(dev, root: str, smi: str, seconds: float = ASR_SECONDS,
+              extra: tuple = ()) -> tuple:
+    """[asr]: --asr 1 --asr_wav <seeded 16 kHz wav> on [cli]'s workspace
+    (head + torso) through a stand-in CTC model (ASR_MODEL_ID, 29 logits
+    at 50 Hz), with --asr_save_feats 1, raw frames (ffmpeg hidden). Run 1:
+    the ray / stage-2 / eval budgets at the whole frame (so no rebuild
+    escape fires mid-stream), eager, every kernel launch held to its plain
+    version, launch counts set to 0 just before and read just after, the
+    frames byte-equal to InferenceSession.run() over the saved features.
+    Run 2: the Config's budgets, as a user runs --asr, eager and held, the
+    frame count equal to run()'s at those budgets and the frames that
+    differ from it listed (the escapes act after each chunk in run_live
+    and a chunk behind in run(): ROADMAP Queue 3 item 8). Run 3: the
+    Config's budgets, the session's default (captured chunks), timed,
+    into the sink the machine has (raw: byte-equal to run 2) -> (ok,
+    report lines, launches of run 3)."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from lzzx_nerf_tpu_torch import cli, kernels
+    from lzzx_nerf_tpu_torch.serving import session as sess_mod
+    from lzzx_nerf_tpu_torch.serving.streaming import RawFileSink
+
+    data, ws = _oracle_paths(root)
+    wav = os.path.join(root, "asr_speech.wav")
+    pcm = np.random.default_rng(21).uniform(-0.5, 0.5, int(16000 * seconds))
+    wavfile.write(wav, 16000, (pcm * 32767).astype(np.int16))
+    argv_cfg = [data, "--workspace", ws, "--asr", "1", "--asr_wav", wav,
+                "--asr_model", ASR_MODEL_ID, "--asr_save_feats", "1",
+                *extra]
+    argv_whole = argv_cfg + ["--budget_frac", "1.0", "--infer_stage2_frac",
+                             "1.0", "--infer_eval_frac", "1.0"]
+    lines, ok = [], True
+    standin = _standin_ctc()
+    orig_init = sess_mod.InferenceSession.__init__
+
+    def eager_init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        self.graph = False
+
+    def held_run(argv):
+        """An eager raw run with every launch held -> (result, seconds,
+        launches, field checks, select checks, held ok, frame bytes)."""
+        cfg, _ = cli.parse_args(argv)
+        field_checks, select_checks = [], []
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_sys_module("transformers", standin))
+            stack.enter_context(_patched(cli.shutil, "which",
+                                         lambda n: None))
+            stack.enter_context(_patched(sess_mod.InferenceSession,
+                                         "__init__", eager_init))
+            kernels.reset_launches()
+            with kernels_held(field_checks, select_checks):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = cli.run_asr_live(cfg, dev)
+            torch_sync(dev)
+            launches = dict(kernels.launches)
+        sec = time.perf_counter() - t0
+        held_ok = (bool(field_checks) and all(e["ok"] for _, e in field_checks)
+                   and bool(select_checks)
+                   and all(e for _, e, _ in select_checks)
+                   and all(v > 0 for v in launches.values()))
+        with open(res["out"], "rb") as f:
+            out = f.read()
+        return res, sec, launches, field_checks, select_checks, held_ok, out
+
+    def offline(argv, feats, name):
+        """InferenceSession.run() over feats -> (frames, bytes, frame
+        bytes)."""
+        cfg, _ = cli.parse_args(argv)
+        sess = sess_mod.InferenceSession(cfg.replace(asr=False), device=dev,
+                                         log=lambda m: None)
+        sess.load_model(data, ws)
+        sess.set_audio_features(feats)
+        path = os.path.join(root, name)
+        n, _ = sess.run(RawFileSink(path))
+        with open(path, "rb") as f:
+            out = f.read()
+        os.remove(path)
+        fb = sess.H * sess.W * 3
+        del sess
+        torch.cuda.empty_cache()
+        return n, out, fb
+
+    def held_text(fc, sc):
+        return (
+            f"field within FIELD_TOL at {sum(e['ok'] for _, e in fc)} of "
+            f"{len(fc)} launches (max share of tol colour "
+            f"{max((e['color_share'] for _, e in fc), default=0):.3f}, sigma "
+            f"{max((e['sigma_share'] for _, e in fc), default=0):.3f}), "
+            f"select equal at {sum(e for _, e, _ in sc)} of {len(sc)}")
+
+    # run 1: whole-frame budgets, eager, held, byte-equal to run()
+    held, t_held, held_launches, fc, sc, h_ok, live_bytes = held_run(
+        argv_whole)
+    feats = np.load(held["feats"])
+    n_ref, ref_bytes, frame_bytes = offline(argv_whole, feats, "asr_run.raw")
+    same = live_bytes == ref_bytes and n_ref == held["frames"]
+    r_ok = (h_ok and same and held["frames"] > 0
+            and feats.shape == (held["frames"], 16, 29))
+    ok &= r_ok
+    lines.append(
+        f"[asr] stand-in CTC model ({ASR_MODEL_ID}: 29 logits at 50 Hz "
+        f"from a fixed-seed map, not a trained ASR) over a seeded "
+        f"{seconds:.0f} s 16 kHz wav, budgets at the whole frame, eager "
+        f"run: {held['frames']} frames in {t_held:.1f} s with every launch "
+        f"held; {held_text(fc, sc)}; launches {held_launches}; "
+        f"--asr_save_feats {os.path.basename(held['feats'])} {feats.shape};"
+        f" raw frames {len(live_bytes) // frame_bytes} byte-equal to run() "
+        f"over the saved features {same} {'OK' if r_ok else 'FAIL'}")
+    del live_bytes, ref_bytes
+
+    # run 2: the Config's budgets, eager, held, against run() there
+    cfg_run, t_cfg, cfg_launches, fc, sc, c_ok, cfg_bytes = held_run(
+        argv_cfg)
+    feats_c = np.load(cfg_run["feats"])
+    n_c, ref_c, _ = offline(argv_cfg, feats_c, "asr_run_cfg.raw")
+    differ = _frames_differ(cfg_bytes, ref_c, frame_bytes)
+    c_ok = (c_ok and n_c == cfg_run["frames"] == held["frames"]
+            and len(cfg_bytes) == len(ref_c) == n_c * frame_bytes
+            and np.array_equal(feats_c, feats))
+    ok &= c_ok
+    lines.append(
+        f"[asr] the Config's budgets (as a user runs --asr), eager run: "
+        f"{cfg_run['frames']} frames in {t_cfg:.1f} s with every launch "
+        f"held; {held_text(fc, sc)}; launches {cfg_launches}; features "
+        f"equal to run 1's; run() over them {n_c} frames; frames that "
+        f"differ from run(): {_spans(differ)} ({len(differ)} of {n_c}: "
+        f"run_live's escapes act after each chunk, run()'s a chunk behind;"
+        f" ROADMAP Queue 3 item 8) {'OK' if c_ok else 'FAIL'}")
+    del ref_c
+
+    # run 3: the Config's budgets, the default path (captured), timed
+    cfg, _ = cli.parse_args(argv_cfg)
+    t0 = time.perf_counter()
+    with _sys_module("transformers", standin):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            timed = cli.run_asr_live(cfg, dev)
+        torch_sync(dev)
+        launches = dict(kernels.launches)
+    t_timed = time.perf_counter() - t0
+    same_eager = "not compared (mp4)"
+    t_ok = (timed["frames"] == cfg_run["frames"]
+            and all(v > 0 for v in launches.values()))
+    if timed["out"].endswith(".raw"):
+        with open(timed["out"], "rb") as f:
+            eq = f.read() == cfg_bytes
+        same_eager = f"byte-equal to run 2's {eq}"
+        t_ok &= eq
+    ok &= t_ok
+    lines.append(
+        f"[asr] the Config's budgets, default run (captured chunks) into "
+        f"{os.path.basename(timed['out'])}: {timed['frames']} frames, "
+        f"{timed['frames'] / timed['seconds']:.2f} frames/s in run_live "
+        f"({timed['seconds']:.2f} s; the wav is not paced), "
+        f"{t_timed:.1f} s with the session's set-up; {same_eager}; "
+        f"launches {launches} [{smi}] {'OK' if t_ok else 'FAIL'}")
+    del cfg_bytes
+    torch.cuda.empty_cache()
+    return ok, lines, launches
+
+
+@contextlib.contextmanager
+def _sys_module(name, module):
+    old = sys.modules.get(name)
+    sys.modules[name] = module
+    try:
+        yield
+    finally:
+        if old is None:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = old
+
+
+def _standin_hubert():
+    """A stand-in of HuBERT (no weights in the repository): a fixed-seed
+    map of each 400-sample window at stride 320 to 1,024 features."""
+    import types
+
+    import torch
+
+    class StandinHubert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(0)
+            self.w = torch.nn.Parameter(torch.randn(400, 1024, generator=g)
+                                        * 0.05)
+
+        @staticmethod
+        def from_pretrained(name):
+            return StandinHubert()
+
+        def forward(self, x):
+            frames = x[0].unfold(0, 400, 320)
+            return types.SimpleNamespace(
+                last_hidden_state=(frames @ self.w)[None])
+
+    mod = types.ModuleType("transformers")
+    mod.HubertModel = StandinHubert
+    mod.Wav2Vec2Processor = _StandinProcessor
+    return mod
+
+
+def _process(args: list, env: dict) -> tuple:
+    """python -m lzzx_nerf_tpu_torch.preprocess.process args -> (rc,
+    seconds, output)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "lzzx_nerf_tpu_torch.preprocess.process", *args],
+                       capture_output=True, text=True, timeout=900,
+                       env={**os.environ, **env})
+    return r.returncode, time.perf_counter() - t0, r.stdout + r.stderr
+
+
+def preprocess_phase(dev, root: str, smi: str, frames: int = PRE_FRAMES,
+                     res: int = 512, device_flag: tuple = ()) -> tuple:
+    """[preprocess]: the stand-in identity of tools/synthetic_face.py (BFM
+    widths: 34,650 vertices, id 100, exp 79, tex 100; `frames` frames at
+    `res`², their .lms, a TorchScript parser); tasks 4, 5, 6, 8 and 9 as
+    `python -m lzzx_nerf_tpu_torch.preprocess.process` processes on the
+    card, tasks 1 and 3 on a clip made from the frames when ffmpeg is on
+    the PATH, task 2 in this process through a stand-in HuBERT; the
+    tracker's stage seconds, steps/s and peak memory, its recovery of the
+    ground truth, and the written dataset loaded by the port's provider ->
+    (ok, report lines). device_flag: ("--device", "cpu") to rehearse."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.data.provider import NeRFDataset
+    from lzzx_nerf_tpu_torch.preprocess import face_tracking as ft
+    from lzzx_nerf_tpu_torch.preprocess import process
+    from lzzx_nerf_tpu_torch.tools import synthetic_face as sf
+
+    lines, ok = [], True
+    t0 = time.perf_counter()
+    bfm = os.path.join(root, "3DMM")
+    sizes = sf.write_bfm_assets(bfm)
+    base = os.path.join(root, "pre_id")
+    got = sf.write_frames(base, bfm, frames=frames, res=res, device=dev)
+    video = os.path.join(base, "clip.mp4")
+    lines.append(
+        f"[preprocess] stand-in identity (tools/synthetic_face.py, not a "
+        f"BFM and not a real face): {sizes}; {frames} frames at {res}² "
+        f"rendered from seeded parameters, .lms with 0.5 px noise, a "
+        f"TorchScript colour parser ({time.perf_counter() - t0:.1f} s)")
+
+    # tasks 1-3: ffmpeg's, and task 2's models
+    ran = []
+    wav_for_2 = os.path.join(root, "pre_speech.wav")
+    from scipy.io import wavfile
+
+    pcm = np.random.default_rng(5).uniform(-0.5, 0.5, 16000 * 4)
+    wavfile.write(wav_for_2, 16000, (pcm * 32767).astype(np.int16))
+    if shutil.which("ffmpeg"):
+        vdir = os.path.join(root, "pre_video")
+        os.makedirs(vdir, exist_ok=True)
+        clip = os.path.join(vdir, "clip.mp4")
+        subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-framerate",
+                        "25", "-i", os.path.join(got["ori_dir"], "%d.jpg"),
+                        "-i", wav_for_2, "-shortest", "-c:v", "libx264",
+                        "-pix_fmt", "yuv420p", clip], check=True)
+        for task in (1, 3):
+            rc, sec, out = _process([clip, "--task", str(task),
+                                     *device_flag], {})
+            t_ok = rc == 0
+            ok &= t_ok
+            ran.append(f"task {task} rc {rc} {sec:.1f} s")
+        n_imgs = len([f for f in os.listdir(os.path.join(vdir, "ori_imgs"))
+                      if f.endswith(".jpg")])
+        ran.append(f"aud.wav {os.path.getsize(os.path.join(vdir, 'aud.wav'))}"
+                   f" bytes, {n_imgs} frames decoded")
+        wav_for_2 = os.path.join(vdir, "aud.wav")
+    else:
+        ran.append("tasks 1 and 3 not run: no ffmpeg on the PATH")
+    t1 = time.perf_counter()
+    with _sys_module("transformers", _standin_hubert()):
+        out2 = process.extract_audio_features(wav_for_2, "hubert",
+                                              device=dev)
+    hu = np.load(out2)
+    ran.append(f"task 2 through a stand-in HuBERT (fixed-seed, not "
+               f"trained): {os.path.basename(out2)} {hu.shape} "
+               f"({time.perf_counter() - t1:.1f} s)")
+    lines.append(f"[preprocess] {'; '.join(ran)}")
+
+    # tasks 4-9 as processes on the card; task 7 (face_alignment) is
+    # stood in for by the .lms written with the frames
+    env = {"LZZX_PARSER_TS": got["parser"], "LZZX_BFM_DIR": bfm}
+    fa = importlib.util.find_spec("face_alignment") is not None
+    stage_s = {}
+    for task in (4, 5, 6, 8, 9):
+        rc, sec, out = _process([video, "--task", str(task),
+                                 *device_flag], env)
+        t_ok = rc == 0
+        ok &= t_ok
+        done = re.findall(r"\[task \d\] done in .*", out)
+        if task == 8:
+            for name, s in re.findall(r"\[task 8\] (\w+): ([0-9.]+) s", out):
+                stage_s[name] = float(s)
+        lines.append(f"[preprocess] task {task}: rc {rc}, {sec:.1f} s with "
+                     f"process start; {done} {'OK' if t_ok else 'FAIL'}")
+        if not t_ok:
+            lines += [f"[preprocess]   {ln}" for ln in out.splitlines()[-12:]]
+    lines.append(
+        f"[preprocess] task 7: face_alignment "
+        f"{'present' if fa else 'absent'}; the stand-in .lms files stand in "
+        "for its output")
+    rates = {k: f"{TRACK_STEPS[k] / v:.1f}" for k, v in stage_s.items()
+             if v > 0}
+    lines.append(
+        f"[preprocess] tracker stages (s): {stage_s}; steps/s {rates} "
+        f"(steps per stage {TRACK_STEPS}; the reference's nine focals, "
+        f"iterations and frames not cut) [{smi}]")
+
+    # the tracker against the ground truth
+    gt = got["gt"]
+    d = np.load(os.path.join(base, "track_params.npz"))
+    model = ft.Face3DMM.load(bfm, device="cpu")
+    cxy = (res / 2.0, res / 2.0)
+    lms = torch.as_tensor(np.stack([np.loadtxt(os.path.join(
+        got["ori_dir"], f"{i}.lms")) for i in range(frames)]),
+        dtype=torch.float32)
+    q = {k: torch.as_tensor(d[k]) for k in d.files}
+    f = q["focal"].reshape(())
+    pr = ft.forward_transform(
+        model.landmarks_3d(q["id"].expand(frames, -1), q["exp"], q["euler"],
+                           q["trans"], f, cxy),
+        q["euler"], q["trans"], f, cxy)[..., :2]
+    err = float(torch.sqrt(torch.mean((pr[:, 17:] - lms[:, 17:]) ** 2)))
+    terr = float(np.abs(d["trans"] - gt["trans"]).max())
+    rerr = float((ft.euler2rot(q["euler"]) - ft.euler2rot(torch.as_tensor(
+        gt["euler"], dtype=torch.float32))).abs().max())
+    g_ok = err < TRACK_LMS_PX and terr < TRACK_TRANS
+    ok &= g_ok
+    lines.append(
+        f"[preprocess] tracked against the ground truth: focal "
+        f"{float(f):.0f} (true {float(gt['focal']):.0f}), inner-landmark "
+        f"reprojection error {err:.3f} px (threshold {TRACK_LMS_PX}), "
+        f"translation error {terr:.4f} (threshold {TRACK_TRANS}), rotation "
+        f"entries within {rerr:.4f} {'OK' if g_ok else 'FAIL'}")
+
+    # the written dataset through the port's provider
+    cfg = Config(path=base, asr_model="deepspeech")
+    ds_t = NeRFDataset(cfg, type="train")
+    ds_v = NeRFDataset(cfg, type="val")
+    b0 = ds_t.frame(0)
+    p_ok = (len(ds_t.poses) + len(ds_v.poses) == frames
+            and b0["image"].shape == (res, res, 3)
+            and bool(np.isfinite(ds_t.poses).all()))
+    ok &= p_ok
+    lines.append(
+        f"[preprocess] the written dataset loads through the port's "
+        f"provider: {len(ds_t.poses)} train + {len(ds_v.poses)} val frames, "
+        f"{ds_t.H}x{ds_t.W}, intrinsics "
+        f"{[round(float(v), 2) for v in ds_t.intrinsics]}, frame 0 image "
+        f"{b0['image'].shape} {'OK' if p_ok else 'FAIL'}")
     return ok, lines
 
 
@@ -1992,6 +2633,14 @@ def main() -> int:
     log(f"[train] {'OK' if p_ok and t_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # ---- a bf16 head step (the CLI's field under --fp16), card vs CPU
+    t0 = time.perf_counter()
+    h_ok, line = fp16_parity(dev)
+    log(line)
+    ok &= h_ok
+    log(f"[fp16] {'OK' if h_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # ---- the lips finetune (runs neither hand kernel), over the head run
     t0 = time.perf_counter()
     l_ok, line = lips_parity(dev)
@@ -2053,7 +2702,8 @@ def main() -> int:
         ok &= w_ok
         log(f"[webapi] {'OK' if w_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
-        for name, fn in (("fallback", fallback_phase), ("cli", cli_phase)):
+        for name, fn in (("fallback", fallback_phase), ("cli", cli_phase),
+                         ("mesh", mesh_phase)):
             t0 = time.perf_counter()
             p_ok, lines = fn(dev, root, smi)
             for line in lines:
@@ -2061,7 +2711,24 @@ def main() -> int:
             ok &= p_ok
             log(f"[{name}] {'OK' if p_ok else 'FAIL'} "
                 f"({time.perf_counter() - t0:.1f} s)")
+        # --asr on [cli]'s workspace: the counts of its default run join
+        # the main path's
+        t0 = time.perf_counter()
+        a_ok, lines, asr_launches = asr_phase(dev, root, smi)
+        for line in lines:
+            log(line)
+        ok &= a_ok
+        log(f"[asr] {'OK' if a_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        p_ok, lines = preprocess_phase(dev, root, smi)
+        for line in lines:
+            log(line)
+        ok &= p_ok
+        log(f"[preprocess] {'OK' if p_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
+    # launches: the main path's ([slice]) and --asr's default run; times
     # per frame: both field launches (stage 1, stage 2) and both select
     # launches (short, long bucket) of the first frame, summed
     def total(rows, key):
@@ -2071,7 +2738,8 @@ def main() -> int:
         {"name": "fused_field", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/fused_field.cu",
          "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
-         "launches": launches["fused_field"],
+         "launches": (launches["fused_field"]
+                      + asr_launches["fused_field"]),
          "max_abs_err": max(e["err"] for _, e in field_checks),
          "ms": total(field_rows, "ms"),
          "plain_ms": total(field_rows, "plain_ms"),
@@ -2080,7 +2748,8 @@ def main() -> int:
         {"name": "march_select", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",
-         "launches": launches["march_select"],
+         "launches": (launches["march_select"]
+                      + asr_launches["march_select"]),
          "max_abs_err": max(r["err"] for r in sel_rows),
          "ms": total(sel_rows, "ms"), "plain_ms": total(sel_rows, "plain_ms"),
          "bound_ms": total(sel_rows, "bound"),

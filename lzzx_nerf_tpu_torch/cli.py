@@ -1,11 +1,14 @@
 """The command line a user runs (port of lzzx_nerf_tpu/cli.py): train a
-head, finetune the lips, train the torso, and render a dataset offline.
+head, finetune the lips, train the torso, render a dataset offline, mesh
+the density field, and render live from a wav or the microphone.
 
 Usage (python -m lzzx_nerf_tpu_torch.cli ...):
   data/<id>/ -O --iters 100000 --workspace ws
   data/<id>/ -O --finetune_lips 1 --iters 125000 --workspace ws
   data/<id>/ -O --torso 1 --iters 200000 --workspace ws_torso
   data/<id>/ -O --test 1 --test_train 1 --torso 1 --workspace ws
+  data/<id>/ -O --save_mesh 1 --workspace ws
+  data/<id>/ -O --asr 1 --asr_wav speech.wav --workspace ws
 
 The flags, their defaults and -O are the JAX package's (one per field of
 Config); --device (default cuda, "cpu" for the plain PyTorch path) is the
@@ -13,12 +16,14 @@ port's one addition, and an entry point without a GPU raises unless it is
 given. Checkpoints are the port's own files (serving/state_io.py), one
 pickle per epoch under <workspace>/checkpoints/; the torso stage trains
 into its own workspace, which --test and the serving session read as
-<workspace>_torso. The port trains in float32 whatever --fp16 says.
+<workspace>_torso. Under --fp16 (the default, and -O) the head field
+computes its audio nets and MLPs in bfloat16 from float32 parameters, as
+the JAX CLI's does; the torso computes in float32.
 
 What the port does not have yet is refused with the ROADMAP item that
-ports it: --asr, --save_mesh, --data_parallel, --infer_data_parallel,
---patch_size > 1, --train_stage_split > 0, --encoder other than dense,
---emb, --exp_eye 0, and the serving alternates of Queue 1 item 8.
+ports it: --data_parallel, --infer_data_parallel, --patch_size > 1,
+--train_stage_split > 0, --encoder other than dense, --emb, --exp_eye 0,
+and the serving alternates of Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -125,8 +130,6 @@ def unported(cfg: Config, test: bool = False) -> List[str]:
     """What in cfg asks for a path the port's CLI does not have, each with
     the ROADMAP item that ports it."""
     checks = [
-        (cfg.asr, f"--asr (the live microphone/wav loop): {Q1} 7"),
-        (cfg.save_mesh, f"--save_mesh (ops/mesh.py): {Q1} 7"),
         (cfg.data_parallel > 0, f"--data_parallel (parallel/): {Q1} 7"),
         (cfg.patch_size > 1, f"--patch_size > 1 (patch LPIPS): {Q1} 5"),
         (cfg.train_stage_split > 0, "--train_stage_split > 0 (the staged "
@@ -164,7 +167,8 @@ def _refuse(cfg: Config, test: bool = False) -> None:
 def _build_world(cfg: Config, ds, device):
     """(settings, occupancy with the cells no training camera sees
     marked, the seeded head field with the camera refinement when
-    cfg.train_camera)."""
+    cfg.train_camera). The field computes its audio nets and MLPs in
+    bfloat16 under cfg.fp16 (float32 parameters), as the JAX CLI's does."""
     from .models.nerf import NeRFField
     from .render.grid_update import mark_untrained_grid
     from .render.state import RenderSettings, init_occupancy_state
@@ -176,7 +180,8 @@ def _build_world(cfg: Config, ds, device):
                               ds.intrinsics)
     field = NeRFField(bound=cfg.bound, audio_in_dim=cfg.audio_in_dim,
                       att=cfg.att, ind_dim=cfg.ind_dim, ind_num=cfg.ind_num,
-                      camera_frames=cfg.ind_num if cfg.train_camera else 0
+                      camera_frames=cfg.ind_num if cfg.train_camera else 0,
+                      dtype=torch.bfloat16 if cfg.fp16 else torch.float32
                       ).to(device)
     field.init_params(torch.Generator(device).manual_seed(cfg.seed))
     return settings, occ, field
@@ -460,6 +465,173 @@ def _torso_workspace(workspace: str) -> str:
     return ws if ws.endswith("_torso") else ws + "_torso"
 
 
+def run_save_mesh(cfg: Config, device=None) -> Dict:
+    """--save_mesh: the density iso-surface of the head field as
+    <workspace>/meshes/mesh_<step>.ply (the JAX CLI's run_save_mesh;
+    reference TrainerUtil.save_mesh). The newest checkpoint's weights
+    (the trained ones, not the EMA, as in JAX), frame 0's audio code and
+    eye value; density queries over mesh_resolution³ points of the AABB
+    in chunks of 65,536 on the device, marching tetrahedra on the host at
+    mesh_threshold. Returns {"path", "verts", "faces", "step",
+    "query_seconds", "march_seconds"}."""
+    from .data.provider import NeRFDataset
+    from .ops.mesh import extract_geometry, save_ply
+    from .train.optim import HeadOptimizer
+    from .train.trainer import Trainer, TrainState
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    _refuse(cfg)
+    ds = NeRFDataset(cfg, type="train")
+    settings, occ, field = _build_world(cfg, ds, dev)
+    trainer = Trainer(cfg.workspace)
+    state = TrainState.create(field, HeadOptimizer(
+        field.named_parameters(), cfg.lr, cfg.lr_net, cfg.iters))
+    state, occ, _ = trainer.load_checkpoint(state, occ)
+    field.eval()
+    b0 = ds.frame(0)
+    query_s = 0.0
+    with torch.no_grad():
+        enc_a = field.encode_audio(torch.as_tensor(b0["auds"], device=dev))
+        eye = torch.as_tensor(b0["eye"], dtype=torch.float32, device=dev)
+        # the float32 tables of the field's own in-graph bake, once
+        packed = field.bake_train_tables()
+
+        def density(pts: np.ndarray) -> np.ndarray:
+            nonlocal query_s
+            t = time.perf_counter()
+            x = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+            sigma = field.density(x, enc_a, eye, packed=packed).sigma
+            out = sigma.cpu().numpy()
+            query_s += time.perf_counter() - t
+            return out
+
+        t0 = time.perf_counter()
+        aabb = settings.aabb
+        verts, faces = extract_geometry(
+            aabb[:3], aabb[3:], resolution=cfg.mesh_resolution,
+            threshold=cfg.mesh_threshold, query_func=density)
+        march_s = time.perf_counter() - t0 - query_s
+    out = os.path.join(cfg.workspace, "meshes")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"mesh_{int(state.step)}.ply")
+    save_ply(path, verts, faces)
+    trainer.log(f"[INFO] saved mesh: {path} "
+                f"({len(verts)} verts, {len(faces)} faces); density queries "
+                f"{query_s:.2f} s on {dev}, marcher {march_s:.2f} s")
+    return {"path": path, "verts": len(verts), "faces": len(faces),
+            "step": int(state.step), "query_seconds": query_s,
+            "march_seconds": march_s}
+
+
+# asr_model family -> HF checkpoint (the JAX CLI's mapping); a name with
+# "/" passes through as a HF id
+ASR_MODEL_IDS = {"esperanto": "cpierse/wav2vec2-large-xlsr-53-esperanto"}
+
+
+def asr_feature_dim(name: str) -> int:
+    """A CTC checkpoint's logit width by its HF id (the JAX CLI's rule)."""
+    return 44 if "esperanto" in name else 29 if "deepspeech" in name else 32
+
+
+def run_asr_live(cfg: Config, device=None) -> Dict:
+    """--asr: live audio -> streamed render (the JAX CLI's run_asr_live;
+    reference train.py:210-236 with asr.py's (l, m, r) contract).
+    Features stream from --asr_wav (a wav replayed at the 20 ms
+    microphone cadence) or the microphone (sounddevice); the hubert
+    family through HubertStreamer, the CTC families through
+    StreamingASR.feature_rows; frames render as soon as their attention
+    context arrives (InferenceSession.run_live) into
+    <workspace>/results/asr_live.mp4 (asr_live.raw, rgb24, without
+    ffmpeg). --asr_save_feats writes the features in the training layout
+    to <wav>.npy (results/asr_feats.npy for the microphone). The models
+    and the session run on the device. Returns {"frames", "seconds",
+    "out", "feats"}."""
+    from .serving.asr import (StreamingASR, mic_chunk_stream,
+                              wav_chunk_stream)
+    from .serving.session import InferenceSession
+    from .serving.streaming import make_sink
+
+    # the session is built with asr=False: cfg.asr makes the provider skip
+    # the dataset's audio, which the plan's audio template needs; run_live
+    # then feeds the live stream. --head_ckpt names the head workspace.
+    workspace = cfg.head_ckpt or cfg.workspace
+    session = InferenceSession(cfg.replace(asr=False), device=device)
+    try:
+        session.load_model(cfg.path, workspace)
+    except FileNotFoundError as e:
+        raise SystemExit(f"no head checkpoint in {workspace!r} — --asr "
+                         f"renders from trained weights only ({e})")
+    ds = session.ds
+
+    chunks = (wav_chunk_stream(cfg.asr_wav) if cfg.asr_wav
+              else mic_chunk_stream())
+    if cfg.asr_play:
+        from .serving.asr import play_through
+
+        chunks = play_through(chunks)
+    asr = None   # the CTC object (None on the hubert path)
+    if cfg.asr_model == "hubert":
+        from .audio.hubert import HubertFeatureExtractor, HubertStreamer
+
+        feature_stream = HubertStreamer(HubertFeatureExtractor(
+            device=session.device)).feature_stream(chunks)
+    else:
+        name = (cfg.asr_model if "/" in cfg.asr_model
+                else ASR_MODEL_IDS.get(cfg.asr_model))
+        if name is None:
+            raise RuntimeError(
+                f"--asr has no streaming CTC for "
+                f"asr_model={cfg.asr_model!r} (deepspeech features come "
+                "from the offline tool; use --asr_model esperanto, hubert, "
+                "or a HuggingFace CTC id)")
+        asr = StreamingASR(asr_feature_dim(name), asr_model=name,
+                           save_feats=True, left=cfg.l, mid=cfg.m,
+                           right=cfg.r, device=session.device)
+        feature_stream = asr.feature_rows(chunks)
+    out = os.path.join(cfg.workspace, "results")
+    os.makedirs(out, exist_ok=True)
+    if shutil.which("ffmpeg"):
+        out_path = os.path.join(out, "asr_live.mp4")
+        sink = make_sink("mp4", ds.W, ds.H, fps=25, path=out_path,
+                         audio_path=cfg.asr_wav)
+    else:
+        out_path = os.path.join(out, "asr_live.raw")
+        sink = make_sink("raw", ds.W, ds.H, path=out_path)
+    collected = []
+    if cfg.asr_save_feats and asr is None:
+        # the hubert path has no CTC accumulator: tee the stream
+        def tee(stream):
+            for f in stream:
+                collected.append(np.asarray(f, np.float32))
+                yield f
+
+        feature_stream = tee(feature_stream)
+    n, dt = session.run_live(feature_stream, sink)
+    feats_path = None
+    if cfg.asr_save_feats:
+        # the training-layout unfold next to the wav (asr.py:236-250)
+        if asr is not None and asr.all_feats:
+            feats = asr.unfolded_features()
+        elif collected:
+            feats = np.concatenate(collected, axis=0)
+        else:
+            feats = None
+        if feats is None:
+            print("[WARN] --asr_save_feats: stream produced no features "
+                  "(audio shorter than the ASR warm-up?) — nothing saved")
+        else:
+            feats_path = (os.path.splitext(cfg.asr_wav)[0] + ".npy"
+                          if cfg.asr_wav
+                          else os.path.join(out, "asr_feats.npy"))
+            np.save(feats_path, feats)
+            print(f"[INFO] asr features saved to {feats_path}")
+    print(f"[INFO] asr live: {n} frames in {dt:.2f}s "
+          f"({n / max(dt, 1e-9):.1f} FPS) -> {out_path}")
+    return {"frames": n, "seconds": dt, "out": out_path,
+            "feats": feats_path}
+
+
 def run_test(cfg: Config, device=None) -> None:
     """Offline rendering of every frame of a dataset split from the EMA
     weights (--head_ckpt names the head's workspace, --torso composites
@@ -732,7 +904,11 @@ def main(argv=None) -> None:
         print("[INFO] --gui: the browser UI is the port's viewer — run "
               "`python -m lzzx_nerf_tpu_torch.serving.webapi --port 7860` "
               "and open http://127.0.0.1:7860/")
-    if cfg.test:
+    if cfg.save_mesh:
+        run_save_mesh(cfg, device)
+    elif cfg.asr:
+        run_asr_live(cfg, device)
+    elif cfg.test:
         run_test(cfg, device)
     else:
         run_train(cfg, device)

@@ -47,14 +47,43 @@ class FieldOutputs(NamedTuple):
     uncertainty: torch.Tensor  # [N]  softplus-activated
 
 
+class _Logistic(torch.autograd.Function):
+    """lax.logistic in a reduced precision, as XLA computes it: 1 / (1 +
+    exp(-x)) with every operation rounded to x's dtype (torch.sigmoid
+    rounds once), and its JVP rule g * (y * (1 - y))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x) if x.dtype == torch.float32 else \
+        _Logistic.apply(x)
+
+
 class NeRFField(nn.Module):
     def __init__(self, bound: float = 1.0, audio_in_dim: int = 1024,
                  audio_dim: int = 32, att: int = 2, ind_dim: int = 4,
-                 ind_num: int = 10_000, camera_frames: int = 0):
+                 ind_num: int = 10_000, camera_frames: int = 0,
+                 dtype: torch.dtype = torch.float32):
         """camera_frames > 0: the learned per-frame pose refinement
         (train_camera) as parameters camera_dR (Euler degrees) and
-        camera_dT [camera_frames, 3], zero at initialisation."""
+        camera_dT [camera_frames, 3], zero at initialisation.
+
+        dtype: the compute dtype of the audio nets and the MLPs (the flax
+        field's `dtype`; the CLI passes bfloat16 under --fp16). The
+        parameters stay float32; density and forward follow JAX's dtype
+        promotions (a float32 operand promotes a bfloat16 one)."""
         super().__init__()
+        self.dtype = dtype
         self.bound = bound
         self.audio_dim = audio_dim
         self.att = att
@@ -69,14 +98,15 @@ class NeRFField(nn.Module):
                     nn.Parameter(torch.zeros(r + 1, r + 1, c)))
         in_dim = 3 * spec.output_dim                       # 36
         self.in_dim = in_dim
-        self.audio_net = AudioNet(audio_in_dim, audio_dim)
+        self.audio_net = AudioNet(audio_in_dim, audio_dim, dtype=dtype)
         if att > 0:
-            self.audio_att_net = AudioAttNet(audio_dim)
-        self.eye_att_net = MLP(in_dim, 1, 16, 2)
-        self.sigma_net = MLP(in_dim + audio_dim + 1, 1 + 64, 64, 3)
-        self.color_net = MLP(16 + 64 + ind_dim, 3, 64, 2)
-        self.unc_net = MLP(in_dim, 1, 32, 2)
-        self.aud_ch_att_net = MLP(in_dim, audio_dim, 64, 2)
+            self.audio_att_net = AudioAttNet(audio_dim, dtype=dtype)
+        self.eye_att_net = MLP(in_dim, 1, 16, 2, dtype=dtype)
+        self.sigma_net = MLP(in_dim + audio_dim + 1, 1 + 64, 64, 3,
+                             dtype=dtype)
+        self.color_net = MLP(16 + 64 + ind_dim, 3, 64, 2, dtype=dtype)
+        self.unc_net = MLP(in_dim, 1, 32, 2, dtype=dtype)
+        self.aud_ch_att_net = MLP(in_dim, audio_dim, 64, 2, dtype=dtype)
         if ind_dim > 0:
             self.individual_codes = nn.Parameter(
                 torch.zeros(ind_num, ind_dim))
@@ -133,11 +163,13 @@ class NeRFField(nn.Module):
         enc_a = enc_a.reshape(1, -1).expand(N, self.audio_dim)
         aud_ch_att = self.aud_ch_att_net(enc_x)
         enc_w = enc_a * aud_ch_att
-        eye_att = torch.sigmoid(self.eye_att_net(enc_x))           # [N, 1]
+        eye_att = _sigmoid(self.eye_att_net(enc_x))                # [N, 1]
+        # under bfloat16 compute the float32 encoding and eye value promote
+        # the concatenation to float32; sigma_net casts it back
         h = self.sigma_net(
             torch.cat([enc_x, enc_w, e.reshape(1, 1) * eye_att], dim=-1))
         # plain exp is the reference activation (not trunc_exp)
-        sigma = torch.exp(h[..., 0])
+        sigma = torch.exp(h[..., 0].float())
         # safe L2: the plain norm's gradient at an exactly-zero vector is
         # nan, and the ambient-audio loss drives these outputs to zero
         amb_aud = torch.sqrt(torch.sum(aud_ch_att ** 2, dim=-1) + 1e-12)
@@ -158,11 +190,11 @@ class NeRFField(nn.Module):
         parts = [sh_encode(d, 4), dens.geo_feat]
         if c is not None:
             parts.append(c.reshape(1, -1).expand(x.shape[0], c.numel()))
-        h_color = self.color_net(torch.cat(parts, dim=-1))
+        h_color = self.color_net(torch.cat(parts, dim=-1)).float()
         color = torch.sigmoid(h_color) * (1 + 2 * 0.001) - 0.001
         if compute_uncertainty:
             # unc_net sees a detached encoding
-            unc = F.softplus(self.unc_net(enc_x.detach()))[..., 0]
+            unc = F.softplus(self.unc_net(enc_x.detach()).float())[..., 0]
         else:
             unc = torch.zeros_like(dens.sigma)
         return FieldOutputs(dens.sigma, color, dens.ambient_aud,

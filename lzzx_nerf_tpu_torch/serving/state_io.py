@@ -3,7 +3,8 @@
 (lzzx_nerf_tpu_torch/tools/train_production.py), or the newest checkpoint
 of a workspace the port's CLI trained (load_workspace_state); and carry a
 CLI checkpoint between the two packages (checkpoint_from_jax,
-checkpoint_to_jax).
+checkpoint_to_jax); and carry the 3DMM tracker's model and fit parameters
+into the port (face3dmm_from_jax, track_params_from_jax).
 
 The port's CLI checkpoint is one pickle per step,
 <workspace>/checkpoints/ckpt_<step:08d>.pkl, with numpy leaves:
@@ -162,6 +163,42 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[key] = np.array(a, order="C")
     return tree
+
+
+def face3dmm_from_jax(fields: Dict[str, Any], device=None):
+    """A JAX Face3DMM's fields (dataclasses.asdict, numpy arrays or None)
+    -> the port's preprocess.face_tracking.Face3DMM on `device` (the
+    CPU unless named): float32 tensors for the bases and means, the index
+    arrays as int64 numpy arrays."""
+    from ..preprocess.face_tracking import Face3DMM
+
+    index = ("keyinds", "left_contour", "right_contour", "tris")
+    out = {}
+    for k, v in fields.items():
+        if v is None:
+            out[k] = None
+        elif k in index:
+            out[k] = np.asarray(v, np.int64)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, np.float32),
+                                     device=device)
+    return Face3DMM(**out)
+
+
+def track_params_from_jax(params: Dict[str, Any], device=None
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX tracker fit's parameter dict (id, exp, euler, trans, focal,
+    and tex / gamma after the photometric stage; numpy arrays) -> the
+    port's: float32 tensors on `device`, focal a scalar. Non-array entries
+    (photo_loss) are left out."""
+    out = {}
+    for k, v in params.items():
+        if k == "photo_loss":
+            continue
+        a = np.asarray(v, np.float32)
+        out[k] = torch.as_tensor(a.reshape(()) if k == "focal" else a,
+                                 device=device)
+    return out
 
 
 # ---- the CLI's checkpoints ---------------------------------------------

@@ -113,7 +113,6 @@ def test_flags_parse_as_the_jax_cli(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--asr", "1"], "item 7"), (["--save_mesh", "1"], "item 7"),
     (["--data_parallel", "2"], "item 7"), (["--patch_size", "4"], "item 5"),
     (["--train_stage_split", "4"], "item 5"),
     (["--encoder", "hash"], "item 6"), (["--emb", "1"], "item 8"),
@@ -133,7 +132,7 @@ def test_no_gpu_raises_without_device_cpu(tmp_path):
     cpu) the CLI raises before it reads anything; it never falls back."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
-    for more in ([], ["--test", "1"]):
+    for more in ([], ["--test", "1"], ["--save_mesh", "1"], ["--asr", "1"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([str(tmp_path), "--workspace", str(tmp_path / "w"),
                       *more])

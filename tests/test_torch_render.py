@@ -279,13 +279,14 @@ def test_session_loads_without_jax(tmp_path):
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port imports jax or the JAX package (the scan
-    does not flag the port's own name)."""
+    """No module of the port imports jax, flax, optax or the JAX package
+    (the scan does not flag the port's own name, nor prose that starts a
+    line with "from optax's")."""
     import re
 
     root = os.path.join(REPO, "lzzx_nerf_tpu_torch")
-    pat = re.compile(r"^\s*(from|import)\s+(jax\b|jaxlib\b|flax\b|"
-                     r"lzzx_nerf_tpu\b(?!_torch))", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|"
+                     r"lzzx_nerf_tpu)(?=[.\s,]|$)", re.M)
     seen = 0
     for dirpath, _, files in os.walk(root):
         for fn in files:
