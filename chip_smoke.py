@@ -22,8 +22,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      instructions;
   5. slice: the main path, --frames frames at 512² with torso through the
      session's captured chunk program (CUDA graph), launch counts reset
-     just before and read just after (each kernel must have launched;
-     replays count the launches their capture recorded);
+     just before and read just after (the triplane entry and the select
+     must have launched, the enc_x entry, which only a hash head runs,
+     must not; replays count the launches their capture recorded);
   6. graph: the same frames through the eager chunk program, byte-equal
      to the captured ones;
   7. frame0: frame 0 rendered again through the plain versions on the card
@@ -92,7 +93,26 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      offline bytes, and a live /api/audio_chunk ... /api/audio_end stream
      of .npy segments the same bytes; both kernels launch in each; the
      wall time of the 64 frames through HTTP.
- 17. fallback: the serving fallbacks, each through an InferenceSession
+ 17. reference: a reference (LZZX-NeRF) checkpoint from a seed at the
+     reference's deepspeech widths (hash head, tiled torso; its density
+     grid the trained state's occupancy in Morton order) imported by
+     tools/import_reference_ckpt.py over [live]'s 512² identity and
+     served by an InferenceSession: the plan settles; an eager run of 64
+     frames with every launch held to its plain version (the field
+     kernel's enc_x entry within FIELD_TOL, with its worst share; the
+     select equal); the same frames captured and timed, byte-equal to
+     the eager ones, launch counts set to 0 just before and read just
+     after (the enc_x entry and the select launch, the triplane entry
+     does not); frames/s eager and captured beside [live]'s dense rate;
+     frame 0 through the plain versions within FRAME_TOL; the enc_x entry
+     at both stage shapes against its bounds and plain version,
+     grid_encode (plain PyTorch) and the tiled torso timed; the frame
+     profiled (tools/profile_frame.py: device ms, kernels, the shares of
+     grid_encode and the enc_x entry); --test --torso on 4 frames; the
+     export (tools/export_reference_ckpt.py) bit for bit equal to the
+     imported checkpoint, with its seconds and the import's; the CLI
+     trains the hash head and the tiled torso 100 steps each (it/s);
+ 18. fallback: the serving fallbacks, each through an InferenceSession
      with the Config's defaults and one override (FALLBACK_PATHS) over
      the trained state's 512² identity: the group-1 march, per-ray
      windows (infer_block 1, render_rays_compact), the single-pass
@@ -105,7 +125,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      plain versions (FRAME_TOL), the captured run's launch counts (set to
      0 just before, read just after: the field kernel on every path, the
      select only on the group-2 block paths) and frames/s;
- 18. cli: the synthetic oracle as a 512² disk dataset
+ 19. cli: the synthetic oracle as a 512² disk dataset
      (tools/dataset.py); `python -m lzzx_nerf_tpu_torch.cli` trains the
      head at the Config's width (grid 128, S 16, 65,536 rays; CLI_HEAD
      iterations, resumed once from its checkpoint, compacted from
@@ -116,14 +136,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      serves the CLI's workspace (its newest checkpoint and _torso) with
      both kernels launching; the head stage once more with --fp16 0
      (float32) for its rate beside the default bf16 one;
- 19. fp16 (after [train]): one bf16 head step (the CLI's field under
+ 20. fp16 (after [train]): one bf16 head step (the CLI's field under
      --fp16) at step 32, 48², grid 32, on the card and on the CPU from one
      seeded init and the same draws, held to tests/test_torch_fp16.py's
      step tolerance;
- 20. mesh: --save_mesh 1 on [cli]'s workspace at the default 256³: the
+ 21. mesh: --save_mesh 1 on [cli]'s workspace at the default 256³: the
      density queries' seconds on the card, the host marcher's, the vertex
      and face counts; one chunk of 65,536 queries card vs CPU;
- 21. asr: --asr 1 on [cli]'s workspace, a seeded 10 s wav through a
+ 22. asr: --asr 1 on [cli]'s workspace, a seeded 5 s wav through a
      stand-in CTC model (29 logits at 50 Hz; no ASR weights are in the
      repository): an eager run at whole-frame budgets with every kernel
      launch held and counted, its raw frames byte-equal to
@@ -132,7 +152,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      run()'s there and the frames that differ listed; then the default
      captured run at the Config's budgets timed, its launch counts added
      to the main path's in the kernels line;
- 22. preprocess: the stand-in identity of tools/synthetic_face.py (BFM
+ 23. preprocess: the stand-in identity of tools/synthetic_face.py (BFM
      widths, 100 frames at 512², .lms, a TorchScript parser); tasks 4, 5,
      6, 8, 9 as `python -m lzzx_nerf_tpu_torch.preprocess.process`
      processes on the card (task 8 uncut: the reference's nine focals),
@@ -200,8 +220,9 @@ FEED_FPS = 25.0
 # maybeFlushLive) posts a WAV chunk once 16,000 samples are buffered from
 # 4,096-sample callbacks, i.e. every PLAYER_POST samples (1.024 s at 16
 # kHz); the server's HubertStreamer turns each post into the whole frames
-# of 640 samples it completes (25 or 26)
-LATENCY_FRAMES = 512
+# of 640 samples it completes (25 or 26). 256 frames (10.24 s of speech,
+# ten posts) keep the script well inside its time limit.
+LATENCY_FRAMES = 256
 PLAYER_POST = 16384
 RECIPE_ARGS = ["--res", "128", "--grid", "64", "--frames", "8",
                "--num-rays", "8192", "--head-iters", "200", "--warmup",
@@ -262,6 +283,13 @@ def sass_hmma(path: str):
     return sum("HMMA" in line for line in r.stdout.splitlines())
 
 
+def dense_launched(launches: dict) -> bool:
+    """A dense head's run launched both kernels of its path (the field
+    kernel's triplane entry and the select) and not the enc_x entry."""
+    return (launches["fused_field"] > 0 and launches["march_select"] > 0
+            and launches["fused_field_enc"] == 0)
+
+
 def field_errors(out_k, out_p) -> dict:
     """Field kernel output vs its plain version, both [N, 4] = (sigma, rgb):
     the largest errors, the largest share of FIELD_TOL each takes, and
@@ -282,20 +310,25 @@ def field_errors(out_k, out_p) -> dict:
 
 @contextlib.contextmanager
 def kernels_held(field_checks: list, select_checks: list,
-                 captured: dict = None):
-    """Inside the block, every call of either kernel's wrapper (the field
-    kernel's fused_field_eval, the march select's march_select) also runs
-    its plain version on the same inputs: field launches append (N,
-    field_errors) to field_checks, select launches (G, equal, samples) to
-    select_checks; `captured` keeps the first two launches' arguments of
-    each. Eager renders only (a CUDA graph replays no Python)."""
+                 captured: dict = None, enc_checks: list = None):
+    """Inside the block, every call of a kernel's wrapper (the field
+    kernel's fused_field_eval and its enc_x entry's fused_field_enc_eval,
+    the march select's march_select) also runs its plain version on the
+    same inputs: field launches append (N, field_errors) to field_checks,
+    enc_x-entry launches to enc_checks (field_checks when None), select
+    launches (G, equal, samples) to select_checks; `captured` keeps the
+    first two launches' arguments of each ("field", "enc", "select").
+    Eager renders only (a CUDA graph replays no Python)."""
     import torch
 
     from lzzx_nerf_tpu_torch.ops import fused_field as ff
     from lzzx_nerf_tpu_torch.ops import march2 as m2_mod
     from lzzx_nerf_tpu_torch.ops import march_select as ms
+    from lzzx_nerf_tpu_torch.ops.sh import sh_encode
 
     orig_field, orig_select = ff.fused_field_eval, ms.march_select
+    orig_enc = ff.fused_field_enc_eval
+    enc_checks = field_checks if enc_checks is None else enc_checks
 
     def keep(a):
         return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
@@ -307,6 +340,16 @@ def kernels_held(field_checks: list, select_checks: list,
         fw, pts, dirs, tables, spec, bound = a[:6]
         out_p = ff.field_reference(fw, pts, dirs, tables, spec, bound)
         field_checks.append((pts.shape[0], field_errors(
+            torch.cat([out[0][:, None], out[1]], -1), out_p)))
+        return out
+
+    def cap_enc(*a):
+        if captured is not None and len(captured.setdefault("enc", [])) < 2:
+            captured["enc"].append(keep(a))
+        out = orig_enc(*a)
+        fw, enc_x, dirs = a[:3]
+        out_p = ff.fused_field_reference(fw, enc_x, sh_encode(dirs, 4))
+        enc_checks.append((enc_x.shape[0], field_errors(
             torch.cat([out[0][:, None], out[1]], -1), out_p)))
         return out
 
@@ -323,11 +366,13 @@ def kernels_held(field_checks: list, select_checks: list,
     # field wrapper up in its module at each call
     m2_mod.march_select = cap_select
     ff.fused_field_eval = cap_field
+    ff.fused_field_enc_eval = cap_enc
     try:
         yield
     finally:
         m2_mod.march_select = orig_select
         ff.fused_field_eval = orig_field
+        ff.fused_field_enc_eval = orig_enc
 
 
 def select_bound(sel_p, a) -> tuple:
@@ -826,8 +871,7 @@ def recipe_phase(dev) -> tuple:
     s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
     same = sum(np.array_equal(a, b)
                for a, b in zip(cap["frames"], eager["frames"]))
-    launched = (set(launches) == {"fused_field", "march_select"}
-                and all(v > 0 for v in launches.values()))
+    launched = dense_launched(launches)
     s_all = (f_ok and s_ok and launched and same == 8 and settled
              and sess.captures >= 1)
     lines.append(
@@ -1007,8 +1051,7 @@ def live_phase(dev, root: str, smi: str, res=None, n_poses=None,
     with open(live_path, "rb") as f:
         same = f.read() == offline
     frame_bytes = sess.H * sess.W * 3
-    launched = all(v > 0 for v in l_run.values()) and all(
-        v > 0 for v in l_live.values())
+    launched = dense_launched(l_run) and dense_launched(l_live)
     r_ok = (n == n_live == frames and same and launched and poses_ok
             and len(offline) == frames * frame_bytes and settled
             and sess.rebuilds == rebuilds)
@@ -1082,7 +1125,7 @@ def live_phase(dev, root: str, smi: str, res=None, n_poses=None,
     ok = r_ok and h_ok and l_ok
     del sess
     return ok, lines, {"ident": ident, "cfg": cfg, "feats": feats,
-                       "offline": offline}
+                       "offline": offline, "fps": n / dt}
 
 
 def webapi_phase(dev, root: str, live: dict, smi: str) -> tuple:
@@ -1171,8 +1214,7 @@ def webapi_phase(dev, root: str, live: dict, smi: str) -> tuple:
         httpd.shutdown()
         httpd.server_close()
         th.join(timeout=30)
-    launched = all(v > 0 for v in l_up.values()) and all(
-        v > 0 for v in l_live.values())
+    launched = dense_launched(l_up) and dense_launched(l_live)
     n = len(feats)
     ok = (r.get("model") == model and up.get("aud_frames") == n
           and inf.get("done") and inf.get("frames_done") == n
@@ -1374,6 +1416,406 @@ def fallback_phase(dev, root: str, smi: str, res=None, n_poses=None,
     return ok, lines
 
 
+# [reference]: the reference-layout checkpoint's seed and identity count
+# (the reference's default ind_num), the CLI steps that train it further
+# and the --test frames
+REF_SEED = 12
+REF_IND_NUM = 10_000
+REF_HEAD_STEPS = 100
+REF_TORSO_STEPS = 100
+REF_TEST_FRAMES = 4
+
+
+def reference_checkpoint(path: str, torso_path: str, state_path: str,
+                         seed: int = REF_SEED) -> tuple:
+    """A reference (LZZX-NeRF) checkpoint from a numpy seed, in the
+    reference's layout at its deepspeech widths (audio_in_dim 29, grid
+    128, bound 1): the hash head (three 163,584-row tables), the audio
+    nets, the five MLPs, REF_IND_NUM individual codes; its density_grid
+    the occupancy of `state_path` (20 where occupied, 0 elsewhere), in
+    the reference's Morton order; and the torso's (the tiled table, its
+    MLPs, anchors, codes, the state's torso grid) at torso_path.
+    Returns (head state dict, torso state dict, natural-order grid) as
+    numpy."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.models.nerf import (torso_tiled_spec,
+                                                 triplane_spec)
+    from lzzx_nerf_tpu_torch.ops.morton import morton_perm
+    from lzzx_nerf_tpu_torch.serving.state_io import load_trained_state
+
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s=0.1):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    sd = {}
+    for (cin, cout), lyr in zip(((29, 32), (32, 32), (32, 64), (64, 64)),
+                                (0, 2, 4, 6)):
+        sd[f"audio_net.encoder_conv.{lyr}.weight"] = r(cout, cin, 3)
+        sd[f"audio_net.encoder_conv.{lyr}.bias"] = r(cout)
+    for (cin, cout), lyr in zip(((64, 64), (64, 32)), (0, 2)):
+        sd[f"audio_net.encoder_fc1.{lyr}.weight"] = r(cout, cin)
+        sd[f"audio_net.encoder_fc1.{lyr}.bias"] = r(cout)
+    for (cin, cout), lyr in zip(((32, 16), (16, 8), (8, 4), (4, 2), (2, 1)),
+                                (0, 2, 4, 6, 8)):
+        sd[f"audio_att_net.attentionConvNet.{lyr}.weight"] = r(cout, cin, 3)
+        sd[f"audio_att_net.attentionConvNet.{lyr}.bias"] = r(cout)
+    sd["audio_att_net.attentionNet.0.weight"] = r(8, 8)
+    sd["audio_att_net.attentionNet.0.bias"] = r(8)
+    for name, dims in (("sigma_net", ((69, 64), (64, 64), (64, 65))),
+                       ("color_net", ((84, 64), (64, 3))),
+                       ("unc_net", ((36, 32), (32, 1))),
+                       ("aud_ch_att_net", ((36, 64), (64, 32))),
+                       ("eye_att_net", ((36, 16), (16, 1)))):
+        for lyr, (cin, cout) in enumerate(dims):
+            sd[f"{name}.net.{lyr}.weight"] = r(cout, cin)
+    rows = triplane_spec(1.0).total_params
+    for p in ("xy", "yz", "xz"):
+        sd[f"encoder_{p}.embeddings"] = r(rows, 1)
+    sd["individual_codes"] = r(REF_IND_NUM, 4)
+    st = load_trained_state(state_path)
+    natural = np.where(np.asarray(st["occ"]["occ"]), 20.0, 0.0).astype(
+        np.float32)
+    H = natural.shape[-1]
+    flat = np.zeros((natural.shape[0], H ** 3), np.float32)
+    flat[:, morton_perm(H)] = natural.reshape(natural.shape[0], -1)
+    sd["density_grid"] = flat
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "mean_density": float(natural.mean()), "global_step": 0,
+                "epoch": 35}, path)
+
+    tsd = {"anchor_points": np.asarray(
+        [[0.01, 0.01, 0.1, 1.0], [-0.1, -0.1, 0.1, 1.0],
+         [0.1, -0.1, 0.1, 1.0]], np.float32),
+        "torso_encoder.embeddings": r(torso_tiled_spec().total_params, 2),
+        "individual_codes_torso": r(REF_IND_NUM, 8)}
+    for name, dims in (("torso_deform_net", ((84, 32), (32, 32), (32, 2))),
+                       ("torso_net", ((116, 32), (32, 32), (32, 4)))):
+        for lyr, (cin, cout) in enumerate(dims):
+            tsd[f"{name}.net.{lyr}.weight"] = r(cout, cin)
+    tsd["density_grid_torso"] = np.asarray(
+        st["occ"]["density_grid_torso"], np.float32).reshape(-1)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in tsd.items()},
+                "mean_density_torso": float(
+                    st["occ"]["mean_density_torso"]), "global_step": 0},
+               torso_path)
+    return sd, tsd, natural
+
+
+def reference_phase(dev, root: str, smi: str, live: dict,
+                    state_path: str) -> tuple:
+    """[reference]: a reference checkpoint (reference_checkpoint) imported
+    by tools/import_reference_ckpt.py over [live]'s 512² identity; an
+    InferenceSession serves it (hash head, tiled torso): its plan settles,
+    then every launch of an eager run is held to its plain version (the
+    enc_x entry within FIELD_TOL, the select equal); the same frames
+    captured, timed, byte-equal to the eager ones, with the launch counts
+    set to 0 just before and read just after (the enc_x entry and the
+    select must launch, the triplane entry must not); frames/s eager and
+    captured beside [live]'s dense rate; frame 0 through the plain
+    versions within FRAME_TOL; the enc_x entry timed at both stage shapes
+    against its bounds and plain version, grid_encode and the tiled
+    torso timed; the frame profiled (tools/profile_frame.py); --test on
+    REF_TEST_FRAMES frames; the export (tools/export_reference_ckpt.py)
+    bit for bit equal to the imported checkpoint; then the CLI trains the
+    hash head and the tiled torso further -> (ok, report lines, the
+    enc_x entry's kernels-line row)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import cli, kernels
+    from lzzx_nerf_tpu_torch.ops import fused_field as ff
+    from lzzx_nerf_tpu_torch.ops.sh import sh_encode
+    from lzzx_nerf_tpu_torch.render.renderer import run_torso_compact
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink
+    from lzzx_nerf_tpu_torch.tools import (export_reference_ckpt,
+                                           import_reference_ckpt)
+    from lzzx_nerf_tpu_torch.tools.profile_frame import profile_identity
+
+    lines = []
+    ok = True
+    quiet = lambda m: None  # noqa: E731
+    ident, feats = live["ident"], live["feats"]
+    data = ident["data"]
+    pth = os.path.join(root, "reference.pth")
+    tpth = os.path.join(root, "reference_torso.pth")
+    sd, tsd, natural = reference_checkpoint(pth, tpth, state_path)
+    ws = os.path.join(root, "trial_reference")
+    t0 = time.perf_counter()
+    imp = import_reference_ckpt.main(
+        ["--ckpt", pth, "--data", data, "--workspace", ws, "--torso-ckpt",
+         tpth, "--asr_model", "deepspeech", "--grid_size", "128"],
+        log=quiet)
+    t_import = time.perf_counter() - t0
+    i_ok = imp["missing"] == [] and imp["occupied"] == int(
+        (natural > 0).sum())
+    ok &= i_ok
+    lines.append(
+        f"[reference] a reference checkpoint (seed {REF_SEED}; hash head "
+        f"3 x {sd['encoder_xy.embeddings'].shape[0]:,} rows, tiled torso "
+        f"{tsd['torso_encoder.embeddings'].shape[0]:,} x 2, "
+        f"{REF_IND_NUM} codes, deepspeech 29, grid 128; density grid the "
+        f"trained state's occupancy, {int((natural > 0).sum()):,} cells, "
+        f"Morton order) imported over {data} in {t_import:.2f} s: "
+        f"{imp['occupied']:,} occupied cells, missing {imp['missing']} "
+        f"{'OK' if i_ok else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    sess = InferenceSession(live["cfg"], device=dev,
+                            log=lambda m: lines.append(f"[reference] {m}"))
+    sess.load_model(data, ws)
+    t_load = time.perf_counter() - t0
+    settled = False
+    for _ in range(4):
+        r0 = sess.rebuilds
+        sess.set_audio_features(feats)
+        sess.run(NullSink())
+        if sess.rebuilds == r0 and not sess.rebuild_pending():
+            settled = True
+            break
+    kinds_ok = (sess.field.encoder == "hash" and sess.torso is not None
+                and sess.torso.encoder == "tiled")
+    lines.append(
+        f"[reference] InferenceSession: head {sess.field.encoder}, torso "
+        f"{sess.torso.encoder if sess.torso is not None else None}, load "
+        f"{t_load:.1f} s; plan after {sess.rebuilds} rebuild(s), settled "
+        f"{settled}: K2={sess.k2} bucket={sess.bucket} budget={sess.budget}"
+        f" long={sess.long_budget} eval={sess.eval_budget} stage2="
+        f"{sess.stage2_budget} {'OK' if kinds_ok and settled else 'FAIL'}")
+    ok &= kinds_ok and settled
+
+    # every launch of an eager run held; the grid encode's first inputs
+    # kept for its timing
+    field_checks, select_checks, enc_checks = [], [], []
+    captured = {"field": [], "select": []}
+    enc_pts = []
+    encode_x = sess.field.encode_x
+
+    def keep_pts(pts, *a, **k):
+        if len(enc_pts) < 2:
+            enc_pts.append(pts.clone())
+        return encode_x(pts, *a, **k)
+
+    eager = {}
+    sess.graph = False
+    sess.field.encode_x = keep_pts
+    t0 = time.perf_counter()
+    try:
+        with kernels_held(field_checks, select_checks, captured,
+                          enc_checks):
+            sess.set_audio_features(feats)
+            sess.run(on_frame=lambda i, b: eager.__setitem__(i, b))
+    finally:
+        del sess.field.encode_x
+        sess.graph = None
+    e_ok = (bool(enc_checks) and all(e["ok"] for _, e in enc_checks)
+            and not field_checks)
+    s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
+    ok &= e_ok and s_ok
+    lines.append(
+        f"[reference] eager run of {len(eager)} frames, every launch held: "
+        f"enc_x entry within FIELD_TOL at "
+        f"{sum(e['ok'] for _, e in enc_checks)} of {len(enc_checks)} "
+        f"launches (N {sorted({m for m, _ in enc_checks})[:4]}..., max "
+        f"share of tol colour "
+        f"{max((e['color_share'] for _, e in enc_checks), default=0):.3f}, "
+        f"sigma "
+        f"{max((e['sigma_share'] for _, e in enc_checks), default=0):.3f}),"
+        f" triplane entry launches {len(field_checks)}; select equal at "
+        f"{sum(e for _, e, _ in select_checks)} of {len(select_checks)} "
+        f"{'OK' if e_ok and s_ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the main path of this slice: captured, timed, counts around it
+    sess.set_audio_features(feats)
+    sess.run(NullSink())                 # capture, warm up
+    cap = {}
+    sess.set_audio_features(feats)
+    kernels.reset_launches()
+    n, dt = sess.run(on_frame=lambda i, b: cap.__setitem__(i, b))
+    torch_sync(dev)
+    launches = dict(kernels.launches)
+    same = sum(np.array_equal(cap[i], eager.get(i)) for i in cap)
+    launched = (launches["fused_field_enc"] > 0
+                and launches["march_select"] > 0
+                and launches["fused_field"] == 0)
+    c_ok = launched and same == len(eager) == n == len(feats)
+    ok &= c_ok
+    fps = {"eager": [], "captured": [n / dt]}
+    for graph in (False, None, False):
+        sess.graph = graph
+        sess.set_audio_features(feats)
+        m, sec = sess.run(NullSink())
+        fps["eager" if graph is False else "captured"].append(m / sec)
+    sess.graph = None
+    lines.append(
+        f"[reference] captured run of {n} frames: {same} byte-equal to the "
+        f"eager run, launches {launches} "
+        f"{'OK' if c_ok else 'FAIL'}; frames/s at {sess.H}², in turns: "
+        f"eager {', '.join(f'{v:.2f}' for v in fps['eager'])}, captured "
+        f"{', '.join(f'{v:.2f}' for v in fps['captured'])}; the dense "
+        f"identity's [live] run() {live['fps']:.2f} [{smi}]")
+
+    # frame 0 through the plain versions on the card
+    win = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (8, 16, 29)).astype(np.float32), device=dev)
+    eye0 = torch.tensor([0.25], device=dev)
+    out = {}
+    for use in (True, False):
+        sess.reset_audio()
+        enc = sess.encode_audio(win)
+        out[use] = sess.render_frame(0, enc, eye0, use_kernels=use,
+                                     fmt="rgb24")
+    torch_sync(dev)
+    img_err = float((out[True]["image"] - out[False]["image"]).abs().max())
+    rgb_err = int((out[True]["rgb"].int() - out[False]["rgb"].int()).abs()
+                  .max())
+    f0_ok = (img_err <= FRAME_TOL and rgb_err <= 1
+             and bool(torch.isfinite(out[True]["image"]).all())
+             and int(out[True]["n_active"]) == int(out[False]["n_active"]))
+    ok &= f0_ok
+    lines.append(f"[reference] frame 0 kernels vs plain: max_abs_err="
+                 f"{img_err:.3g} rgb_max_diff={rgb_err} n_active="
+                 f"{int(out[True]['n_active'])} "
+                 f"{'OK' if f0_ok else 'FAIL'}")
+
+    # the enc_x entry at both stage shapes, grid_encode, the tiled torso
+    rows = []
+    for stage, ((fw, enc_x, dirs, wpack), pts) in enumerate(
+            zip(captured["enc"][:2], enc_pts), 1):
+        nn_ = enc_x.shape[0]
+        e = enc_checks[stage - 1][1]
+        flops = 2.0 * FIELD_MACS * nn_
+        nbytes = nn_ * (36 + 3 + 4) * 4 + ff.W_TOTAL * 4
+        b_bytes = 1e3 * nbytes / PEAK_BYTES
+        b_tc = max(1e3 * 3 * flops / PEAK_TF32_FLOPS, b_bytes)
+        b_f32 = max(1e3 * flops / PEAK_F32_FLOPS, b_bytes)
+        ms_k = cuda_time_ms(lambda: ff.fused_field_enc_cuda(enc_x, dirs,
+                                                            wpack))
+        ms_p = cuda_time_ms(lambda: ff.fused_field_reference(
+            fw, enc_x, sh_encode(dirs, 4)), reps=5, warmup=1)
+        with torch.no_grad():
+            ms_g = cuda_time_ms(lambda: sess.field.encode_x(pts), reps=5,
+                                warmup=1)
+        rows.append({"err": e["err"], "ms": ms_k, "plain_ms": ms_p,
+                     "bound": b_tc, "by": "operations" if b_tc > b_bytes
+                     else "bytes"})
+        lines.append(
+            f"[kernel] fused_field_enc stage {stage} N={nn_} "
+            f"max_abs_err={e['err']:.3g} ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+            f"bound_ms 3xTF32={b_tc:.4f} (share {b_tc / ms_k:.3f}) "
+            f"f32-FMA={b_f32:.4f} bytes={b_bytes:.4f} (172 B a sample and "
+            f"the weights once); grid_encode of the {pts.shape[0]} points "
+            f"{ms_g:.4f} ms (plain PyTorch) [{smi}]")
+    inv_t = sess.pose_inv_t[0]
+
+    def torso_pass():
+        return run_torso_compact(
+            lambda c, p, code: sess.torso(c, p, code, sess.torso_packed,
+                                          inv_t),
+            sess.torso_plan, sess.poses_dev[0],
+            sess.torso.individual_codes_torso[0], sess.bg)
+
+    ms_torso = cuda_time_ms(torso_pass, reps=10, warmup=2)
+    lines.append(f"[reference] tiled torso pass over "
+                 f"{int((sess.torso_plan.idx < sess.H * sess.W).sum()):,} "
+                 f"pixels: {ms_torso:.4f} ms a frame [{smi}]")
+
+    # one hash frame profiled, eager and captured
+    p_lines, p_stats = profile_identity(sess, feats[:16])
+    shown = 0
+    for ln in p_lines:
+        # each section's top 10 kernels
+        shown = 0 if ln.startswith("==") else shown + 1
+        if shown <= 13:
+            lines.append(f"[profile] {ln}")
+    ok &= all(p_stats.values())
+    del sess
+    torch.cuda.empty_cache()
+
+    # --test on a few frames of the identity, the launches counted
+    t0 = time.perf_counter()
+    test_argv = [data, "--workspace", ws, "--encoder", "hash",
+                 "--asr_model", "deepspeech", "--test", "1",
+                 "--test_train", "1", "--torso", "1", "--budget_frac",
+                 "0.75", "--data_range", "0", str(REF_TEST_FRAMES)]
+    if ident["bg_img"]:
+        test_argv += ["--bg_img", ident["bg_img"]]
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.run_test(*cli.parse_args(test_argv))
+    torch_sync(dev)
+    t_launches = dict(kernels.launches)
+    pngs = [f for f in os.listdir(os.path.join(ws, "results"))
+            if f.endswith(".png")]
+    t_ok = (len(pngs) == REF_TEST_FRAMES
+            and t_launches["fused_field_enc"] > 0
+            and t_launches["fused_field"] == 0)
+    ok &= t_ok
+    lines.append(f"[reference] --test --torso on {REF_TEST_FRAMES} frames: "
+                 f"{len(pngs)} PNGs, launches {t_launches} "
+                 f"{'OK' if t_ok else 'FAIL'} "
+                 f"({time.perf_counter() - t0:.1f} s)")
+
+    # the export, bit for bit the imported checkpoint
+    out_pth = os.path.join(root, "exported.pth")
+    t0 = time.perf_counter()
+    export_reference_ckpt.main(
+        ["--workspace", ws, "--data", data, "--out", out_pth,
+         "--torso-workspace", ws + "_torso", "--asr_model", "deepspeech",
+         "--grid_size", "128"], log=quiet)
+    t_export = time.perf_counter() - t0
+    back = torch.load(out_pth, map_location="cpu", weights_only=False)
+    bsd = back["model"]
+    want = {**sd, **tsd}
+    differ = [k for k, v in want.items() if k not in bsd or not np.array_equal(
+        bsd[k].numpy().view(np.uint32), np.asarray(v).view(np.uint32))]
+    bits = np.unpackbits(bsd["density_bitfield"].numpy(), bitorder="little")
+    x_ok = (not differ and back["global_step"] == 0
+            and bool(np.array_equal(bits.astype(bool),
+                                    sd["density_grid"].reshape(-1) > 0)))
+    ok &= x_ok
+    lines.append(f"[reference] export in {t_export:.2f} s: {len(want)} "
+                 f"tensors bit for bit equal to the imported checkpoint "
+                 f"{not differ} (differ: {differ[:5]}), bitfield equal "
+                 f"{'OK' if x_ok else 'FAIL'}")
+
+    # the CLI trains the imported head and torso further
+    base = [data, "--workspace", ws, "--encoder", "hash", "--asr_model",
+            "deepspeech", "--preload", "1", "--train_compact_warmup",
+            str(REF_HEAD_STEPS // 2)]
+    for name, args, steps in (
+            ("head", base + ["--iters", str(REF_HEAD_STEPS)],
+             REF_HEAD_STEPS),
+            ("torso", base + ["--torso", "1", "--workspace", ws + "_torso",
+                              "--iters", str(REF_TORSO_STEPS)],
+             REF_TORSO_STEPS)):
+        rc, sec, txt = _cli(args)
+        its = re.findall(r"\(([0-9.]+) it/s\)", txt)
+        s_ok = (rc == 0 and "resumed at step 0" in txt
+                and "training done" in txt)
+        ok &= s_ok
+        lines.append(
+            f"[reference] CLI --encoder hash {name}: rc {rc}, {steps} steps "
+            f"from the import in {sec:.1f} s wall; logged rate {its} it/s "
+            f"[{smi}] {'OK' if s_ok else 'FAIL'}")
+        if not s_ok:
+            lines += [f"[reference]   {ln}" for ln in txt.splitlines()[-15:]]
+    row = {"name": "fused_field_enc", "route": "cuda",
+           "source": "lzzx_nerf_tpu_torch/csrc/fused_field.cu",
+           "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
+           "launches": launches["fused_field_enc"],
+           "max_abs_err": max(e["err"] for _, e in enc_checks),
+           "ms": sum(r["ms"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows),
+           "bound_ms": sum(r["bound"] for r in rows),
+           "bound_by": rows[0]["by"], "library_ms": None}
+    return ok, lines, row
+
+
 def _cli(args: list) -> tuple:
     """python -m lzzx_nerf_tpu_torch.cli args -> (rc, seconds, output)."""
     t0 = time.perf_counter()
@@ -1482,7 +1924,7 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
     out = buf.getvalue()
     f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
     s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
-    launched = all(v > 0 for v in held.values())
+    launched = dense_launched(held)
     fps = re.findall(r"rendered (\d+) frames at ([0-9.]+) FPS", out)
     metric = re.findall(r"\[metric\] (.*)", out)
     pngs = [f for f in os.listdir(os.path.join(ws, "results"))
@@ -1525,7 +1967,7 @@ def cli_phase(dev, root: str, smi: str, res: int = 512,
     frame0 = got[0].reshape(sess.H, sess.W, 3).astype(np.float32) / 255.0
     gt0 = sess.ds.frame(0)["image"]
     psnr0 = float(-10 * np.log10(max(np.mean((frame0 - gt0) ** 2), 1e-12)))
-    v_ok = (n == len(feats) and all(v > 0 for v in launches.values())
+    v_ok = (n == len(feats) and dense_launched(launches)
             and sess.torso is not None)
     ok &= v_ok
     lines.append(
@@ -1554,7 +1996,7 @@ MESH_H_TOL = 2.0 ** -7
 MESH_CHUNK = 65536
 # [asr]: the seeded wav's length, and the HF-style id of the stand-in CTC
 # model (a name with "deepspeech" selects 29 logits)
-ASR_SECONDS = 10.0
+ASR_SECONDS = 5.0
 ASR_MODEL_ID = "standin/deepspeech-ctc"
 # [preprocess]: frames of the stand-in clip at 512²; the tracker's steps
 # per stage: the focal search over the reference's nine focals
@@ -1838,7 +2280,7 @@ def asr_phase(dev, root: str, smi: str, seconds: float = ASR_SECONDS,
         held_ok = (bool(field_checks) and all(e["ok"] for _, e in field_checks)
                    and bool(select_checks)
                    and all(e for _, e, _ in select_checks)
-                   and all(v > 0 for v in launches.values()))
+                   and dense_launched(launches))
         with open(res["out"], "rb") as f:
             out = f.read()
         return res, sec, launches, field_checks, select_checks, held_ok, out
@@ -1922,7 +2364,7 @@ def asr_phase(dev, root: str, smi: str, seconds: float = ASR_SECONDS,
     t_timed = time.perf_counter() - t0
     same_eager = "not compared (mp4)"
     t_ok = (timed["frames"] == cfg_run["frames"]
-            and all(v > 0 for v in launches.values()))
+            and dense_launched(launches))
     if timed["out"].endswith(".raw"):
         with open(timed["out"], "rb") as f:
             eq = f.read() == cfg_bytes
@@ -2497,7 +2939,7 @@ def main() -> int:
     frames_ok = (len(res["frames"]) == F and all(
         f.shape == (sess.H * sess.W * 3 // 2,) and f.dtype == np.uint8
         for f in res["frames"]))
-    launched = all(v > 0 for v in launches.values())
+    launched = dense_launched(launches)
     counters_ok = (max(res["n_active"]) <= sess.budget
                    and max(res["n_winmax"]) <= sess.k2
                    and max(res["n_real"]) <= sess.eval_budget
@@ -2702,6 +3144,16 @@ def main() -> int:
         ok &= w_ok
         log(f"[webapi] {'OK' if w_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
+        # the reference-checkpoint path: a hash identity over [live]'s
+        # dataset through the field kernel's enc_x entry
+        t0 = time.perf_counter()
+        r_ok, lines, enc_row = reference_phase(dev, root, smi, live,
+                                               args.state)
+        for line in lines:
+            log(line)
+        ok &= r_ok
+        log(f"[reference] {'OK' if r_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
         for name, fn in (("fallback", fallback_phase), ("cli", cli_phase),
                          ("mesh", mesh_phase)):
             t0 = time.perf_counter()
@@ -2728,9 +3180,10 @@ def main() -> int:
         log(f"[preprocess] {'OK' if p_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
 
-    # launches: the main path's ([slice]) and --asr's default run; times
-    # per frame: both field launches (stage 1, stage 2) and both select
-    # launches (short, long bucket) of the first frame, summed
+    # launches: the main path's ([slice]) and --asr's default run, the
+    # enc_x entry's from [reference]'s captured run; times per frame: both
+    # field launches (stage 1, stage 2) and both select launches (short,
+    # long bucket) of the first frame, summed
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2745,6 +3198,7 @@ def main() -> int:
          "plain_ms": total(field_rows, "plain_ms"),
          "bound_ms": total(field_rows, "bound_tc"),
          "bound_by": field_rows[0]["by"], "library_ms": None},
+        enc_row,
         {"name": "march_select", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",

@@ -20,10 +20,15 @@ into its own workspace, which --test and the serving session read as
 computes its audio nets and MLPs in bfloat16 from float32 parameters, as
 the JAX CLI's does; the torso computes in float32.
 
+--encoder hash builds the reference's hash-triplane head and, for the
+torso stage and --test --torso, the reference's tiled torso (the JAX CLI's
+rule: any encoder but dense takes the tiled torso): the fields a reference
+checkpoint imported with tools/import_reference_ckpt.py holds.
+
 What the port does not have yet is refused with the ROADMAP item that
 ports it: --data_parallel, --infer_data_parallel, --patch_size > 1,
---train_stage_split > 0, --encoder other than dense, --emb, --exp_eye 0,
-and the serving alternates of Queue 1 item 8.
+--train_stage_split > 0, --emb, --exp_eye 0, and the serving alternates
+of Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -134,8 +139,6 @@ def unported(cfg: Config, test: bool = False) -> List[str]:
         (cfg.patch_size > 1, f"--patch_size > 1 (patch LPIPS): {Q1} 5"),
         (cfg.train_stage_split > 0, "--train_stage_split > 0 (the staged "
          f"training composite): {Q1} 5"),
-        (cfg.encoder != "dense", f"--encoder {cfg.encoder} (the hash "
-         f"encoder, utils/convert.py): {Q1} 6"),
         (cfg.emb, f"--emb (label audio features): {Q1} 8"),
         (not cfg.exp_eye, f"--exp_eye 0 (a field without the eye branch): "
          f"{Q1} 8"),
@@ -166,9 +169,10 @@ def _refuse(cfg: Config, test: bool = False) -> None:
 
 def _build_world(cfg: Config, ds, device):
     """(settings, occupancy with the cells no training camera sees
-    marked, the seeded head field with the camera refinement when
-    cfg.train_camera). The field computes its audio nets and MLPs in
-    bfloat16 under cfg.fp16 (float32 parameters), as the JAX CLI's does."""
+    marked, the seeded head field of cfg.encoder with the camera
+    refinement when cfg.train_camera). The field computes its audio nets
+    and MLPs in bfloat16 under cfg.fp16 (float32 parameters), as the JAX
+    CLI's does."""
     from .models.nerf import NeRFField
     from .render.grid_update import mark_untrained_grid
     from .render.state import RenderSettings, init_occupancy_state
@@ -181,18 +185,21 @@ def _build_world(cfg: Config, ds, device):
     field = NeRFField(bound=cfg.bound, audio_in_dim=cfg.audio_in_dim,
                       att=cfg.att, ind_dim=cfg.ind_dim, ind_num=cfg.ind_num,
                       camera_frames=cfg.ind_num if cfg.train_camera else 0,
-                      dtype=torch.bfloat16 if cfg.fp16 else torch.float32
-                      ).to(device)
+                      dtype=torch.bfloat16 if cfg.fp16 else torch.float32,
+                      encoder=cfg.encoder).to(device)
     field.init_params(torch.Generator(device).manual_seed(cfg.seed))
     return settings, occ, field
 
 
 def _make_torso(cfg: Config, device):
+    """The seeded torso; any head encoder but dense takes the tiled torso
+    (the JAX CLI's rule)."""
     from .models.nerf import TorsoField
 
-    torso = TorsoField(torso_shrink=cfg.torso_shrink,
-                       ind_dim_torso=cfg.ind_dim_torso,
-                       ind_num=cfg.ind_num).to(device)
+    torso = TorsoField(
+        torso_shrink=cfg.torso_shrink, ind_dim_torso=cfg.ind_dim_torso,
+        ind_num=cfg.ind_num,
+        encoder="dense" if cfg.encoder == "dense" else "tiled").to(device)
     torso.init_params(torch.Generator(device).manual_seed(cfg.seed))
     return torso
 

@@ -18,6 +18,11 @@
 //   rgb    = sigmoid(hc @ col1) * 1.002 - 0.001
 // out[n] = (sigma, r, g, b).
 //
+// A second entry, field_enc_kernel (fused_field_enc_launch), computes the
+// Pallas kernel's own function: it reads enc_x [n, 36] float32 in place of
+// the three lookups (the hash head's encoding, computed outside the
+// kernel by grid_encode) and shares the SH basis and the MLP (mlp_tile).
+//
 // What bounds it on the H100: arithmetic. The MLP is 22,928 multiply-adds
 // (45.9 kFLOP) per sample; a sample reads 24 B (pts, dirs) and writes 16 B,
 // and the three bf16 tables (22.8 MB) stay in the 50 MB L2. The features
@@ -486,6 +491,97 @@ field_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   }
 }
 
+// The enc_x entry: as field_kernel, with each warp's 16 rows of enc_x
+// [n, 36] (16-byte aligned rows of 9 float4) copied into the staging tile
+// in place of the lookups; rows past n stage zeros.
+__global__ void __launch_bounds__(kThreads, 1)
+field_enc_kernel(const float* __restrict__ enc_x,
+                 const float* __restrict__ dirs,
+                 const float* __restrict__ wpack, float* __restrict__ out,
+                 unsigned n) {
+  extern __shared__ float4 smem4[];
+  float* const w = reinterpret_cast<float*>(smem4);
+  const float4* wsrc = reinterpret_cast<const float4*>(wpack);
+  for (int i = threadIdx.x; i < W_TOTAL / 4; i += blockDim.x) smem4[i] = wsrc[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const tile = w + W_TOTAL + warp * kRows * kLd;
+  const float4* enc4 = reinterpret_cast<const float4*>(enc_x);
+  const unsigned step = gridDim.x * kWarps * kRows;
+  for (unsigned base = (blockIdx.x * kWarps + warp) * kRows; base < n;
+       base += step) {
+    int wofs = 0;
+    asm volatile("" : "+r"(wofs));
+    for (int task = lane; task < kRows * 9; task += 32) {
+      const int r = task / 9, q = task % 9;
+      const unsigned s = base + r;
+      *reinterpret_cast<float4*>(tile + r * kLd + 4 * q) =
+          s < n ? __ldg(enc4 + 9 * (size_t)s + q)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    if (lane < kRows)
+      *reinterpret_cast<float4*>(tile + lane * kLd + 36) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncwarp();
+    mlp_tile(tile, w + wofs, dirs, out, base, n, lane);
+    __syncwarp();
+  }
+}
+
+// each entry's SM count per device, 0 until its first launch there
+int sm_field[64], sm_enc[64];
+
+// The shared-memory opt-in of `kernel` and the SM count, set at its first
+// launch on each device (cached in sm_count): later launches (a CUDA
+// graph's capture among them) make no runtime call besides cudaGetDevice.
+// Returns the device's SM count in *sms, or a CUDA status.
+template <typename Kernel>
+int prepare(Kernel kernel, int (&sm_count)[64], int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sm_count[dev] = count;
+  }
+  *sms = sm_count[dev];
+  return 0;
+}
+
+int blocks_for(int n, int sms) {
+  const int steps = (n + kWarps * kRows - 1) / (kWarps * kRows);
+  return steps < sms ? steps : sms;
+}
+
+// What the compiled kernel takes on this device: out[0] registers per
+// thread, out[1] local (spill) bytes per thread, out[2] shared memory bytes
+// per block, out[3] resident warps per SM. Returns a CUDA status.
+template <typename Kernel>
+int kernel_info(Kernel kernel, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
+    return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, SMEM_BYTES);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = SMEM_BYTES + (int)attr.sharedSizeBytes;
+  out[3] = blocks * kWarps;
+  return (int)err;
+}
+
 }  // namespace
 
 // pts, dirs [n, 3] f32; t_xy, t_yz, t_xz [256², 58] bf16 packed tables
@@ -498,50 +594,41 @@ extern "C" int fused_field_launch(const void* pts, const void* dirs,
                                   void* out, int n, float bound,
                                   void* stream) {
   if (n <= 0) return 0;
-  // the shared-memory opt-in and the SM count, set at the first launch on
-  // each device: later launches (a CUDA graph's capture among them) make
-  // no runtime call besides cudaGetDevice
-  static int sm_count[64];  // 0 until the device's first launch
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    err = cudaFuncSetAttribute(field_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    sm_count[dev] = sms;
-  }
-  const int sms = sm_count[dev];
-  const int steps = (n + kWarps * kRows - 1) / (kWarps * kRows);
-  const int blocks = steps < sms ? steps : sms;
-  field_kernel<<<blocks, kThreads, SMEM_BYTES, (cudaStream_t)stream>>>(
+  int sms = 0;
+  const int err = prepare(field_kernel, sm_field, &sms);
+  if (err != 0) return err;
+  field_kernel<<<blocks_for(n, sms), kThreads, SMEM_BYTES,
+                 (cudaStream_t)stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(dirs),
       static_cast<const uint32_t*>(t_xy), static_cast<const uint32_t*>(t_yz),
       static_cast<const uint32_t*>(t_xz), static_cast<const float*>(wpack),
       static_cast<float*>(out), (unsigned)n, bound);
   return (int)cudaGetLastError();
 }
-// What the compiled kernel takes on this device: out[0] registers per
-// thread, out[1] local (spill) bytes per thread, out[2] shared memory bytes
-// per block, out[3] resident warps per SM. Returns a CUDA status.
+
+// enc_x [n, 36] f32, dirs [n, 3] f32, wpack [47568] f32, out [n, 4] f32;
+// all contiguous, enc_x, wpack and out 16-byte aligned, 0 <= n < 2^31 (the
+// Python wrapper checks). Returns the CUDA status of the launch.
+extern "C" int fused_field_enc_launch(const void* enc_x, const void* dirs,
+                                      const void* wpack, void* out, int n,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  int sms = 0;
+  const int err = prepare(field_enc_kernel, sm_enc, &sms);
+  if (err != 0) return err;
+  field_enc_kernel<<<blocks_for(n, sms), kThreads, SMEM_BYTES,
+                     (cudaStream_t)stream>>>(
+      static_cast<const float*>(enc_x), static_cast<const float*>(dirs),
+      static_cast<const float*>(wpack), static_cast<float*>(out),
+      (unsigned)n);
+  return (int)cudaGetLastError();
+}
+
+// kernel_info of each entry's kernel (out: registers, spill bytes, shared
+// memory bytes, warps per SM)
 extern "C" int fused_field_info(int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, field_kernel)) != cudaSuccess)
-    return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, field_kernel,
-                                                      kThreads, SMEM_BYTES);
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = SMEM_BYTES + (int)attr.sharedSizeBytes;
-  out[3] = blocks * kWarps;
-  return (int)err;
+  return kernel_info(field_kernel, out);
+}
+extern "C" int fused_field_enc_info(int* out) {
+  return kernel_info(field_enc_kernel, out);
 }

@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
-# one library per source; the C entry points each declares
+# one library per source
 SOURCES = {"fused_field": "fused_field.cu", "march_select": "march_select.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -38,17 +38,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the kernels' entries: name -> (library, C entry point, argument types);
+# a library also declares <name>_info for each of its entries
 _SIGNATURES = {
-    "fused_field": ("fused_field_launch",
+    "fused_field": ("fused_field", "fused_field_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P]),
-    "march_select": ("march_select_launch",
+    # the field kernel's entry that reads enc_x (the hash head)
+    "fused_field_enc": ("fused_field", "fused_field_enc_launch",
+                        [_P, _P, _P, _P, _I, _P]),
+    "march_select": ("march_select", "march_select_launch",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _F, _F, _I, _I, _P]),
 }
 
-# launches of each kernel; a wrapper adds one where it launches its kernel
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+# launches of each entry; a wrapper adds one where it launches its kernel
+launches: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, object] = {}
 last_build: Dict[str, dict] = {}
 
 
@@ -113,26 +119,35 @@ def build(extra_flags=()) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built on first use."""
+    """The loaded library of one source (SOURCES), built on first use."""
     lib = _libs.get(name)
     if lib is None:
         info = last_build.get(name) or build()[name]
         lib = ctypes.CDLL(info["path"])
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
 
+def _entry(name: str):
+    """The C entry point of one kernel entry, its types declared."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib_name, fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(library(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
 def info(name: str, *shape: int) -> Dict[str, int]:
     """Registers and spill bytes per thread, shared memory per block and
-    resident warps per SM of one kernel as compiled, from the CUDA runtime
-    (its library's ``<name>_info`` entry point). `shape` is what that
-    entry point takes after its output array: the launch sizes its shared
-    memory depends on (march_select: G, S; fused_field: none)."""
-    fn = getattr(library(name), f"{name}_info")
+    resident warps per SM of one kernel entry as compiled, from the CUDA
+    runtime (its library's ``<name>_info`` entry point). `shape` is what
+    that entry point takes after its output array: the launch sizes its
+    shared memory depends on (march_select: G, S; the field entries:
+    none)."""
+    fn = getattr(library(_SIGNATURES[name][0]), f"{name}_info")
     fn.argtypes = [_P] + [_I] * len(shape)
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
@@ -144,10 +159,10 @@ def info(name: str, *shape: int) -> Dict[str, int]:
 
 
 def launch(name: str, *args) -> None:
-    """Call a kernel's C entry point and raise on a nonzero CUDA status."""
-    lib = library(name)
-    fn_name, _ = _SIGNATURES[name]
-    status = getattr(lib, fn_name)(*args)
+    """Call a kernel entry's C entry point and raise on a nonzero CUDA
+    status."""
+    status = _entry(name)(*args)
     if status != 0:
-        raise RuntimeError(f"{fn_name} failed with CUDA error {status}")
+        raise RuntimeError(f"{_SIGNATURES[name][1]} failed with CUDA error "
+                           f"{status}")
     launches[name] += 1

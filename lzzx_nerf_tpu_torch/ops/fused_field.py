@@ -11,6 +11,12 @@ one hand-written kernel (csrc/fused_field.cu, the port of the Pallas
 ``_field_kernel``); on a CPU tensor they run as the plain PyTorch version
 (field_reference: encode_triplanes, sh_encode, fused_field_reference),
 which is also what the kernel is held to.
+
+The hash head has no packed tables: its encoding enc_x [N, 36] comes from
+grid_encode (plain PyTorch) and goes through the kernel's second entry,
+which computes what the Pallas kernel computes from enc_x and the
+directions (fused_field_enc_eval; plain version fused_field_reference of
+enc_x and the SH basis).
 """
 
 from __future__ import annotations
@@ -249,6 +255,63 @@ def fused_field_cuda(pts: torch.Tensor, dirs: torch.Tensor,
                            wpack.data_ptr(), out.data_ptr(), n, float(bound),
                            torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def fused_field_enc_cuda(enc_x: torch.Tensor, dirs: torch.Tensor,
+                         wpack: torch.Tensor) -> torch.Tensor:
+    """Launch the field kernel's enc_x entry: enc_x [N, 36] float32, dirs
+    [N, 3] float32, wpack [W_TOTAL] float32 (pack_frame_weights); all
+    contiguous on one CUDA device, enc_x and wpack 16-byte aligned ->
+    [N, 4] = (sigma, r, g, b)."""
+    dev = enc_x.device
+    if dev.type != "cuda":
+        raise ValueError("fused_field_enc_cuda takes CUDA tensors")
+    n = enc_x.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError("fused_field_enc_cuda: too many samples for int32")
+    checks = ((enc_x, (n, 36), torch.float32, 16),
+              (dirs, (n, 3), torch.float32, 4),
+              (wpack, (W_TOTAL,), torch.float32, 16))
+    for t, shape, dtype, align in checks:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"fused_field_enc_cuda: expected {dtype} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"fused_field_enc_cuda: expected a contiguous "
+                             f"{shape}, got {tuple(t.shape)}")
+        if t.data_ptr() % align:
+            raise ValueError(f"fused_field_enc_cuda: inputs must be "
+                             f"{align}-byte aligned")
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            kernels.launch("fused_field_enc", enc_x.data_ptr(),
+                           dirs.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+                           n, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def fused_field_enc_eval(fw: FrameWeights, enc_x: torch.Tensor,
+                         dirs: torch.Tensor,
+                         wpack: Optional[torch.Tensor] = None):
+    """(sigma [N], color [N, 3]) from the encoding enc_x [N, 36] of points
+    seen along dirs [N, 3]: the Pallas kernel's own function.
+
+    The wrapper of the kernel's enc_x entry: a CUDA tensor runs the CUDA
+    kernel (wpack is pack_frame_weights(fw), packed here when the caller
+    has not), a CPU tensor runs the plain version (fused_field_reference
+    of enc_x and the SH-4 basis), any other device raises."""
+    if enc_x.device.type == "cuda":
+        out = fused_field_enc_cuda(enc_x.float().contiguous(),
+                                   dirs.float().contiguous(),
+                                   pack_frame_weights(fw)
+                                   if wpack is None else wpack)
+    elif enc_x.device.type == "cpu":
+        out = fused_field_reference(fw, enc_x.float(),
+                                    sh_encode(dirs.float(), 4))
+    else:
+        raise ValueError(f"no field kernel for device {enc_x.device}")
+    return out[:, 0], out[:, 1:4]
 
 
 def fused_field_eval(fw: FrameWeights, pts: torch.Tensor, dirs: torch.Tensor,

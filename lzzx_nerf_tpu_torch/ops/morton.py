@@ -77,3 +77,14 @@ def dilate_grid3d(grid: torch.Tensor) -> torch.Tensor:
         out = torch.maximum(out, fwd)
         out = torch.maximum(out, bwd)
     return out
+
+
+def morton_perm(H: int):
+    """[H^3] int64 numpy permutation between natural xyz order and the
+    reference's Morton-ordered buffer slots: `flat[:, perm] =
+    natural.reshape(-1, H**3)` mortonises and `natural = flat[:, perm]`
+    de-mortonises (the checkpoint import and export tools)."""
+    r = torch.arange(H)
+    coords = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                         dim=-1).reshape(-1, 3)
+    return morton3d(coords).to(torch.int64).numpy()

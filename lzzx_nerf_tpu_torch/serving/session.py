@@ -13,9 +13,10 @@ Two sessions run one chunk program (_Session):
   sink) stream frames into a FrameSink (serving/streaming.py).
 
 What both share: the trained state on one device (the EMA head with its
-bf16 tables, the torso with its f32 table when the state has one, the
-occupancy tables), the frame (audio encode with the smooth-lips EMA in
-its masked form, so a chunk has no Python branch; rays; the torso pass
+bf16 tables, or a hash head, which has none; the torso with its f32 table
+when the state has one, or a tiled torso; the occupancy tables), the
+frame (audio encode with the smooth-lips EMA in its masked form, so a
+chunk has no Python branch; rays; the torso pass
 or the plain background; render_rays_compact_blocks: nb5wp march with
 the prepass, the bucket march, the eval re-compaction, the staged eval;
 yuv420p or rgb24 bytes), the chunk program (static input buffers to
@@ -70,8 +71,8 @@ from ..utils.device import resolve_device
 from ..utils.pose import camera_refinement
 from ..utils.profiling import PhaseAccumulator
 from ..utils.rays import get_bg_coords, get_rays
-from .state_io import (load_trained_state, load_workspace_state,
-                       params_from_jax)
+from .state_io import (head_encoder, load_trained_state,
+                       load_workspace_state, params_from_jax, torso_encoder)
 from .streaming import FrameSink, NullSink
 
 SMOOTH_LIPS = 0.35   # EMA weight of the previous frame's audio code
@@ -114,9 +115,12 @@ class _Session:
               variants: tuple = ("nb5w", "dil")) -> None:
         """Put the state `st` (load_trained_state's dict) on `device` for
         H x W frames at `poses` [P, 4, 4] over the background `bg`
-        [H, W, 3]: the head (EMA weights, bf16 tables), the torso when the
-        state has one (f32 table, the frame-invariant torso plan), the
-        occupancy and its tables."""
+        [H, W, 3]: the head (EMA weights, bf16 tables of a dense head; a
+        hash head has none), the torso when the state has one (f32 table
+        of a dense torso; a tiled torso has none; the frame-invariant
+        torso plan), the occupancy and its tables. Each field's encoder
+        is the one its tree holds (state_io.head_encoder,
+        torso_encoder)."""
         self.device = dev = device
         self.log = log
         self.settings = settings
@@ -142,12 +146,14 @@ class _Session:
             audio_in_dim=int(st["meta"]["audio_dim"]), att=att,
             ind_dim=0 if codes is None else int(np.shape(codes)[1]),
             ind_num=1 if codes is None else int(np.shape(codes)[0]),
-            camera_frames=0 if cam is None else int(np.shape(cam)[0]))
+            camera_frames=0 if cam is None else int(np.shape(cam)[0]),
+            encoder=head_encoder(head))
         self.field.load_state_dict(params_from_jax(head))
         self.field.to(dev).eval()
         self.ind_code = (None if codes is None
                          else self.field.individual_codes[0].detach())
-        # bf16 head tables, baked in f32 and cast once (serving default)
+        # bf16 head tables, baked in f32 and cast once (serving default;
+        # {} for a hash head)
         self.packed = self.field.bake_tables(torch.bfloat16)
 
         frame = H * W
@@ -159,7 +165,8 @@ class _Session:
             tcodes = np.asarray(torso["individual_codes_torso"])
             self.torso = TorsoField(torso_shrink=settings.torso_shrink,
                                     ind_dim_torso=tcodes.shape[1],
-                                    ind_num=tcodes.shape[0])
+                                    ind_num=tcodes.shape[0],
+                                    encoder=torso_encoder(torso))
             self.torso.load_state_dict(params_from_jax(torso))
             self.torso.to(dev).eval()
             self.torso_packed = self.torso.bake_table(torch.float32)
@@ -783,7 +790,6 @@ def unported_plan(cfg: Config) -> List[str]:
          f"march without the prepass): {q1} 8"),
         (not cfg.infer_table_bf16, "infer_table_bf16 off (f32 tables; the "
          f"field kernel reads bf16): {q1} 8"),
-        (cfg.encoder != "dense", f"encoder {cfg.encoder!r}: {q1} 6"),
         (cfg.emb, f"emb (label audio features): {q1} 8"),
         (not cfg.exp_eye, f"exp_eye off (a field without the eye branch): "
          f"{q1} 8"),
@@ -833,8 +839,8 @@ class InferenceSession(_Session):
         frame sides or infer_block 1, the exhaustive marcher at cascade >
         1; the block march steps down to the per-ray march outside its
         drift envelope. Raises when the Config asks for a path the port
-        does not have, when the state's grid is not the Config's, or when
-        there is no state."""
+        does not have, when the state's grid or head encoder is not the
+        Config's, or when there is no state."""
         from ..data.provider import NeRFDataset
 
         t0 = time.perf_counter()
@@ -856,6 +862,9 @@ class InferenceSession(_Session):
         if int(meta["grid"]) != cfg.grid_size:
             raise ValueError(f"{workspace} holds a grid of {meta['grid']} "
                              f"cells, the Config grid_size {cfg.grid_size}")
+        if head_encoder(st["head"]) != cfg.encoder:
+            raise ValueError(f"{workspace} holds a {head_encoder(st['head'])}"
+                             f" head, the Config encoder {cfg.encoder!r}")
         ds = NeRFDataset(cfg, type="train")
         ds.training = False
         if (ds.aud_features is not None

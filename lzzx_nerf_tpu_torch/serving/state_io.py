@@ -21,7 +21,11 @@ objects; unpickling them would import jax. _StateUnpickler hands back an
 inert stub for every jax/jaxlib class instead; the port's file has no
 treedef. Either way the torso tree is rebuilt from its leaves, which are
 stored in the sorted key-path order of the flax params tree
-(TORSO_LEAF_PATHS; flatten_paths gives the writer that order).
+(TORSO_LEAF_PATHS for the dense torso, TORSO_TILED_LEAF_PATHS for the
+tiled one, told apart by their count; flatten_paths gives the writer
+that order). The head's tree carries its encoder's tables as they
+are named: encoder_{xy,yz,xz}_l{0..3} (dense) or encoder_{xy,yz,xz}
+(hash).
 params_from_jax then maps flax Dense [in, out] and Conv [k, in, out]
 kernels onto the PyTorch layouts of the port's modules (Linear [out, in],
 Conv1d [out, in, k]), keyed by the modules' state_dict names.
@@ -36,21 +40,36 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-# the torso params tree's leaves in sorted key-path order
+# the torso params tree's leaves in sorted key-path order: the dense
+# torso's, and the tiled torso's (one table, torso_encoder)
+_TORSO_NETS = ("torso_deform_net/net_0/kernel",
+               "torso_deform_net/net_1/kernel",
+               "torso_deform_net/net_2/kernel")
+_TORSO_HEAD = ("torso_net/net_0/kernel", "torso_net/net_1/kernel",
+               "torso_net/net_2/kernel")
 TORSO_LEAF_PATHS = (
-    "anchor_points",
-    "individual_codes_torso",
-    "torso_deform_net/net_0/kernel",
-    "torso_deform_net/net_1/kernel",
-    "torso_deform_net/net_2/kernel",
-    "torso_encoder_l0",
-    "torso_encoder_l1",
-    "torso_encoder_l2",
-    "torso_encoder_l3",
-    "torso_net/net_0/kernel",
-    "torso_net/net_1/kernel",
-    "torso_net/net_2/kernel",
-)
+    "anchor_points", "individual_codes_torso", *_TORSO_NETS,
+    "torso_encoder_l0", "torso_encoder_l1", "torso_encoder_l2",
+    "torso_encoder_l3", *_TORSO_HEAD)
+TORSO_TILED_LEAF_PATHS = (
+    "anchor_points", "individual_codes_torso", *_TORSO_NETS,
+    "torso_encoder", *_TORSO_HEAD)
+
+
+def head_encoder(tree: Dict[str, Any]) -> str:
+    """The encoder of a head params tree: "hash" when it holds the hash
+    tables (encoder_xy), else "dense"."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return "hash" if "encoder_xy" in tree else "dense"
+
+
+def torso_encoder(tree: Dict[str, Any]) -> str:
+    """The encoder of a torso params tree: "tiled" when it holds the
+    tiled table (torso_encoder), else "dense"."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return "tiled" if "torso_encoder" in tree else "dense"
 
 
 class _JaxStub:
@@ -104,12 +123,16 @@ def load_trained_state(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         st = _StateUnpickler(f).load()
     leaves = st.get("torso_leaves")
-    if leaves is not None and len(leaves) != len(TORSO_LEAF_PATHS):
+    # the leaf count tells the torso's encoder (12 dense, 9 tiled)
+    by_count = {len(p): p for p in (TORSO_LEAF_PATHS,
+                                    TORSO_TILED_LEAF_PATHS)}
+    if leaves is not None and len(leaves) not in by_count:
         raise ValueError(f"{path}: {len(leaves)} torso leaves, expected "
-                         f"{len(TORSO_LEAF_PATHS)}")
+                         f"{len(TORSO_LEAF_PATHS)} (dense) or "
+                         f"{len(TORSO_TILED_LEAF_PATHS)} (tiled)")
     return {"head": st["head_ema"],
             "torso": (None if leaves is None
-                      else _nest(TORSO_LEAF_PATHS, leaves)),
+                      else _nest(by_count[len(leaves)], leaves)),
             "occ": {k: np.asarray(v) for k, v in st["occ"].items()},
             "meta": st["meta"]}
 

@@ -7,16 +7,18 @@ state, in the layout the HTTP server reads (<root>/<model> and
         [--state trained/production_state.pkl] [--model identity] \\
         [--res 512] [--poses N] [--seed 0]
 
-The dataset holds transforms_train.json (the state's intrinsics scaled to
---res; each frame's transform_matrix is the inverse of nerf_matrix_to_ngp
-at the Config's scale and offset, so the loaded poses are the state's),
-gt_imgs/<id>.jpg and ori_imgs/<id>.lms (landmarks), au.csv (blinks),
-aud_ds.npy (seeded 29-wide features, one row per frame) and bc.jpg (a
-seeded background) when OpenCV, the provider's image codec, is
-installed. Without it the images are not written (the gt images are
-empty files: the provider checks that they exist and reads none while
-serving) and the identity serves with Config(bg_img="white");
-write_identity says which.
+The dataset holds transforms_train.json and transforms_val.json (the
+same frames: the state's intrinsics scaled to --res; each frame's
+transform_matrix is the inverse of nerf_matrix_to_ngp at the Config's
+scale and offset, so the loaded poses are the state's),
+gt_imgs/<id>.jpg, torso_imgs/<id>.png (a seeded torso plate over the
+lower third, so --test and the CLI's training load the frames) and
+ori_imgs/<id>.lms (landmarks), au.csv (blinks), aud_ds.npy (seeded
+29-wide features, one row per frame) and bc.jpg (a seeded background)
+when OpenCV, the provider's image codec, is installed. Without it the
+images are not written (the gt images are empty files: the provider
+checks that they exist and reads none while serving) and the identity
+serves with Config(bg_img="white"); write_identity says which.
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ def image_writer():
         import cv2
     except ImportError:
         return None
+    # RGB(A) -> OpenCV's BGR(A)
     return lambda path, img: cv2.imwrite(
-        path, np.ascontiguousarray(img[..., ::-1]))
+        path, np.ascontiguousarray(img[..., [2, 1, 0, 3][:img.shape[-1]]]))
 
 
 def write_identity(out: str, state_path: str = _STATE,
@@ -80,7 +83,7 @@ def write_identity(out: str, state_path: str = _STATE,
     P = len(poses)
     data = os.path.join(out, model)
     ws = os.path.join(out, f"trial_{model}")
-    for sub in ("gt_imgs", "ori_imgs"):
+    for sub in ("gt_imgs", "torso_imgs", "ori_imgs"):
         os.makedirs(os.path.join(data, sub), exist_ok=True)
     os.makedirs(ws, exist_ok=True)
     shutil.copyfile(state_path, os.path.join(ws, "production_state.pkl"))
@@ -99,6 +102,10 @@ def write_identity(out: str, state_path: str = _STATE,
         if write is not None:
             write(os.path.join(data, "gt_imgs", f"{i}.jpg"),
                   rng.integers(0, 256, (R, R, 3), dtype=np.uint8))
+            torso = np.zeros((R, R, 4), np.uint8)
+            torso[2 * R // 3:, :, :3] = rng.integers(60, 200, 3)
+            torso[2 * R // 3:, :, 3] = 255
+            write(os.path.join(data, "torso_imgs", f"{i}.png"), torso)
     if write is not None:
         # a smooth seeded gradient: what a background plate looks like
         y, x = np.meshgrid(np.linspace(0, 1, R), np.linspace(0, 1, R),
@@ -112,9 +119,11 @@ def write_identity(out: str, state_path: str = _STATE,
         # it while serving
         for i in range(P):
             open(os.path.join(data, "gt_imgs", f"{i}.jpg"), "wb").close()
-    with open(os.path.join(data, "transforms_train.json"), "w") as f:
-        json.dump({"fl_x": fx, "fl_y": fy, "cx": cx, "cy": cy, "h": R,
-                   "w": R, "frames": frames}, f)
+    # the val split (the CLI's training evals) holds the same frames
+    for split in ("train", "val"):
+        with open(os.path.join(data, f"transforms_{split}.json"), "w") as f:
+            json.dump({"fl_x": fx, "fl_y": fy, "cx": cx, "cy": cy, "h": R,
+                       "w": R, "frames": frames}, f)
     with open(os.path.join(data, "au.csv"), "w") as f:
         f.write("frame, AU45_r\n")
         for i, v in enumerate(rng.uniform(0.0, 1.0, P)):

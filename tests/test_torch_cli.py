@@ -1,5 +1,6 @@
 """The port's CLI (lzzx_nerf_tpu_torch/cli.py) on the CPU: its flags
-against the JAX CLI's, its refusals, the training run's files and step
+against the JAX CLI's, its refusals, the ported flags (--encoder hash)
+trained, tested and meshed, the training run's files and step
 schedule, a resumed run against an unbroken one, the lips and torso
 stages, the workspace served by InferenceSession and the HTTP API, the
 train_camera step against JAX's, and the checkpoint carried between the
@@ -114,8 +115,7 @@ def test_flags_parse_as_the_jax_cli(argv):
 
 @pytest.mark.parametrize("flag,item", [
     (["--data_parallel", "2"], "item 7"), (["--patch_size", "4"], "item 5"),
-    (["--train_stage_split", "4"], "item 5"),
-    (["--encoder", "hash"], "item 6"), (["--emb", "1"], "item 8"),
+    (["--train_stage_split", "4"], "item 5"), (["--emb", "1"], "item 8"),
     (["--exp_eye", "0"], "item 8"),
     (["--test", "1", "--infer_data_parallel", "2"], "item 7"),
     (["--test", "1", "--infer_table_bf16", "0"], "item 8"),
@@ -125,6 +125,33 @@ def test_refusals_name_their_roadmap_item(tmp_path, flag, item):
             "--device", "cpu", *flag]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("flag", [["--encoder", "hash"]],
+                         ids=lambda v: v[0])
+def test_ported_flags_train_test_and_mesh(oracle, tmp_path, flag):
+    """The flags the CLI refused before their paths were ported train the
+    head and the torso, render --test --torso and mesh: --encoder hash
+    (the hash head, the tiled torso)."""
+    _, data = oracle
+    ws = str(tmp_path / "ws")
+    cli.main(_args(data, ws, "--iters", "8", *flag))
+    cli.main(_args(data, ws + "_torso", "--torso", "1", "--iters", "8",
+                   *flag))
+    head = read_checkpoint(os.path.join(ws, "checkpoints"))
+    torso = read_checkpoint(os.path.join(ws + "_torso", "checkpoints"))
+    assert int(head["state"]["step"]) == int(torso["state"]["step"]) == 8
+    assert head["state"]["ema_params"]["encoder_xy"].shape == (163_584, 1)
+    assert torso["state"]["ema_params"]["torso_encoder"].shape == (
+        555_520, 2)
+    common = [data, "--workspace", ws, "--asr_model", "deepspeech",
+              "--grid_size", "32", "--device", "cpu", *flag]
+    cli.main(common + ["--test", "1", "--test_train", "1", "--torso", "1"])
+    pngs = [f for f in os.listdir(os.path.join(ws, "results"))
+            if f.endswith(".png")]
+    assert len(pngs) == 8
+    cli.main(common + ["--save_mesh", "1", "--mesh_resolution", "24"])
+    assert os.listdir(os.path.join(ws, "meshes")) == ["mesh_8.ply"]
 
 
 def test_no_gpu_raises_without_device_cpu(tmp_path):

@@ -79,6 +79,96 @@ def test_field_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(out[:, 1:], ref[:, 1:], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 127, 5000, 70001])
+def test_field_enc_entry_matches_plain(cuda, n):
+    """The enc_x entry (the Pallas kernel's function: enc_x and the
+    directions) vs fused_field_reference of enc_x and the SH basis, at N
+    that are and are not multiples of a warp's 16 rows, and N = 0 (no
+    launch): sigma to 1e-4 relative, colors to 1e-5 absolute."""
+    _, fw, _ = _random_field(cuda, n + 3)
+    rng = np.random.default_rng(n + 4)
+    enc_x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 36)).astype(
+        np.float32)).to(cuda)
+    _, d = _points(n, n + 2, cuda)
+    before = kernels.launches["fused_field_enc"]
+    out = ff.fused_field_enc_cuda(enc_x, d, ff.pack_frame_weights(fw))
+    ref = ff.fused_field_reference(fw, enc_x, sh_encode(d, 4))
+    torch.cuda.synchronize()
+    assert out.shape == (n, 4)
+    assert kernels.launches["fused_field_enc"] == before + (1 if n else 0)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[:, 1:], ref[:, 1:], rtol=0, atol=1e-5)
+
+
+def test_field_enc_entry_rejects_bad_inputs(cuda):
+    _, fw, _ = _random_field(cuda, 5)
+    _, d = _points(8, 6, cuda)
+    w = ff.pack_frame_weights(fw)
+    enc = torch.zeros(8, 36, device=cuda)
+    shifted = torch.zeros(8 * 36 + 1, device=cuda)[1:].view(8, 36)
+    for args in ((enc.double(), d, w), (enc[:, :35].contiguous(), d, w),
+                 (enc, d[:7], w), (enc, d, w[:-1]), (shifted, d, w),
+                 (enc.cpu(), d, w)):
+        with pytest.raises(ValueError):
+            ff.fused_field_enc_cuda(*args)
+
+
+def test_hash_head_serving_field_on_card(cuda):
+    """A hash head's serving field (grid_encode on the card, then the enc_x
+    entry) against the plain version on the card and on the CPU."""
+    from lzzx_nerf_tpu_torch.models.nerf import make_fused_apply
+
+    rng = np.random.default_rng(9)
+    field = NeRFField(audio_in_dim=29, ind_num=8, encoder="hash")
+    with torch.no_grad():
+        for name, p in field.named_parameters():
+            scale = 0.5 if name.startswith("encoder_") else 0.2
+            p.copy_(torch.from_numpy(
+                rng.uniform(-scale, scale, p.shape).astype(np.float32)))
+    enc_a = torch.from_numpy(rng.normal(0, 0.3, (1, 32)).astype(np.float32))
+    pts, d = _points(20000, 10, "cpu", reach=1.05)
+    outs = {}
+    for dev, kernel in ((cuda, True), (cuda, False), ("cpu", False)):
+        f = field.to(dev)
+        before = kernels.launches["fused_field_enc"]
+        outs[(str(dev), kernel)] = [t.cpu() for t in make_fused_apply(
+            f, {}, enc_a.to(dev), f.individual_codes[0].detach(),
+            torch.tensor([0.3], device=dev), use_kernel=kernel)(
+            pts.to(dev), d.to(dev))]
+        assert kernels.launches["fused_field_enc"] == before + int(kernel)
+    k = outs[(str(cuda), True)]
+    for ref in (outs[(str(cuda), False)], outs[("cpu", False)]):
+        torch.testing.assert_close(k[0], ref[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(k[1], ref[1], rtol=0, atol=1e-5)
+
+
+def test_grid_encode_on_card_matches_cpu(cuda):
+    """grid_encode of the tiled torso's spec on the card vs the CPU: the
+    forward bit-equal, the table gradient (atomic index_add on the card)
+    within 1e-6 of its largest entry."""
+    from lzzx_nerf_tpu_torch.models.nerf import torso_tiled_spec
+    from lzzx_nerf_tpu_torch.ops.grid import grid_encode
+
+    spec = torso_tiled_spec()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (40000, 2)).astype(
+        np.float32))
+    table = torch.from_numpy(rng.standard_normal(
+        (spec.total_params, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((40000, 32)).astype(np.float32))
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = table.to(dev).requires_grad_()
+        y = grid_encode(x.to(dev), t, spec)
+        (y * w.to(dev)).sum().backward()
+        got[dev.type] = (y.detach().cpu(), t.grad.cpu())
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    g = got["cpu"][1]
+    torch.testing.assert_close(got["cuda"][1], g, rtol=0,
+                               atol=1e-6 * float(g.abs().max()))
+
+
 def test_field_kernel_outside_box(cuda):
     """Points outside [-bound, bound] on every plane give zero features:
     the kernel's output there equals the field at zero features."""
@@ -308,4 +398,5 @@ def test_session_graph_equals_eager(cuda):
         assert eager[k] == cap[k]
     # the warm-up frame of the capture, then 3 chunks of 2 frames:
     # 2 field and 2 select launches a frame
-    assert kernels.launches == {"fused_field": 2 * 7, "march_select": 2 * 7}
+    assert kernels.launches == {"fused_field": 2 * 7, "fused_field_enc": 0,
+                                "march_select": 2 * 7}

@@ -18,8 +18,8 @@ is what the port serves. Both sessions run on the same seeded features:
   tests, held on the port);
 - a head-only state serves over the dataset's background (the trained
   state's torso: tests/test_torch_serving_api.py);
-- the plans of the fallback paths serve; every plan the port has no
-  path for raises, naming its ROADMAP item.
+- the plans of the fallback paths and a hash head serve; every plan the
+  port has no path for raises, naming its ROADMAP item.
 
 Stage-2 budget: infer_stage2_frac 1.0 at ray budgets in whole 1024-slot
 steps, so the JAX session never truncates stage 2 (where the port's
@@ -291,21 +291,51 @@ def test_head_only_serves_over_dataset_background(blob):
     assert np.abs(fc - fw).mean() > 5.0
 
 
+@pytest.fixture(scope="module")
+def blob_hash(blob, tmp_path_factory):
+    """The blob identity with a hash head: its production state with the
+    dense tables replaced by seeded hash tables (encoder_xy, encoder_yz,
+    encoder_xz of triplane_spec(1))."""
+    from lzzx_nerf_tpu_torch.models.nerf import triplane_spec
+
+    data, ws = blob
+    with open(os.path.join(ws, "production_state.pkl"), "rb") as f:
+        st = pickle.load(f)
+    head = {k: v for k, v in st["head_ema"].items()
+            if not k.startswith("encoder_")}
+    rng = np.random.default_rng(8)
+    rows = triplane_spec(1.0).total_params
+    for p in ("xy", "yz", "xz"):
+        head[f"encoder_{p}"] = rng.uniform(-0.5, 0.5, (rows, 1)).astype(
+            np.float32)
+    st["head_ema"] = head
+    hws = tmp_path_factory.mktemp("blob_hash")
+    with open(hws / "production_state.pkl", "wb") as f:
+        pickle.dump(st, f)
+    return str(hws)
+
+
 @pytest.mark.parametrize("kw,path,group", [
     (dict(bound=2.0), "full", 1),
     (dict(infer_block=1), "compact", 1),
     (dict(infer_march_group=1), "blocks", 1),
     (dict(infer_stage_split=0), "blocks", 2),
     (dict(train_camera=True), "blocks", 2),
+    (dict(encoder="hash"), "blocks", 2),
 ])
-def test_ported_plans_serve(blob, kw, path, group):
+def test_ported_plans_serve(blob, blob_hash, kw, path, group):
     """The plans a session refused before their paths were ported:
     cascade 2 (render_rays), per-ray windows (render_rays_compact), the
-    group-1 march, the single-pass composite, and train_camera (a state
-    without camera parameters serves unrefined, as in the JAX session)."""
+    group-1 march, the single-pass composite, train_camera (a state
+    without camera parameters serves unrefined, as in the JAX session),
+    and the hash head (a state holding the hash tables; its parity with
+    the JAX session is tests/test_torch_hash.py)."""
     data, ws = blob
+    if kw.get("encoder") == "hash":
+        ws = blob_hash
     s = _port(data, ws, infer_window_candidates=40, budget_frac=1.0, **kw)
     assert (s.path, s.march_group) == (path, group)
+    assert s.field.encoder == kw.get("encoder", "dense")
     assert s.settings.cascade == (2 if "bound" in kw else 1)
     got = _run(s, _feats(2, 4))
     assert sorted(got) == [0, 1]
@@ -319,7 +349,6 @@ def test_ported_plans_serve(blob, kw, path, group):
     (dict(infer_march_variant="quadw"), "item 8"),
     (dict(infer_march_prepass=False), "item 8"),
     (dict(infer_table_bf16=False), "item 8"),
-    (dict(encoder="hash"), "item 6"),
     (dict(emb=True), "item 8"),
     (dict(exp_eye=False), "item 8"),
 ])
@@ -333,6 +362,8 @@ def test_load_model_refusals(blob, tmp_path):
     data, ws = blob
     with pytest.raises(ValueError, match="grid"):
         _port(data, ws, grid_size=64)
+    with pytest.raises(ValueError, match="dense head, the Config encoder"):
+        _port(data, ws, encoder="hash")
     with pytest.raises(FileNotFoundError, match="production_state.pkl"):
         _port(data, str(tmp_path))
     s = InferenceSession(Config(**BASE), device="cpu", log=_quiet)
