@@ -52,7 +52,13 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      loss of the first and last 30 steps (the last must average under 0.8
      of the first) and the 256² eval PSNR over 4 frames before and after
      (it must rise); then torch.profiler's top-10 kernels of one
-     compacted step and the share of the table-gradient scatter;
+     compacted step and the share of the table-gradient scatter; the
+     staged compacted step (train_stage_split 4) at 48² card vs CPU at a
+     stage-2 budget the survivors overflow and one they fit (n_stage2
+     equal); the staged step (split 8, stage-2 budget 16,384) timed in
+     turns against the single-pass compacted one at the production point
+     (steps/s, n_stage2 against its budget, peak memory); one patch step
+     (patch_size 32, LPIPS on the fixed-seed backbone) card vs CPU;
  12. lips: the lips finetune (LPIPS; neither hand kernel). One lips step at
      step 5 (48², grid 32, the 32² crop) on the card and on the CPU from
      one seeded init and the same draws, held to the [train] tolerances;
@@ -160,8 +166,24 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      HuBERT; the tracker's stage seconds, steps/s and peak memory, its
      recovery of the ground truth at tests/test_face_tracking.py's
      thresholds, and the dataset loaded by the port's provider.
-Then a "kernels" JSON line, the nvidia-smi line, and last the device JSON
-line.
+ 24. parallel (after [mesh]): on [cli]'s dataset, PAR_STEPS head steps as
+     CLI processes: plain, --patch_size 32 --allow_rand_lpips 1 ([patch]:
+     it/s beside the plain head's) and --data_parallel 1 (NCCL, a group
+     of one: it/s, its checkpoint's parameter moves held to the plain
+     run's by the [train] rule); --data_parallel 2 on one card must exit
+     with the JAX CLI's message; one compacted data-parallel step at
+     world size 1 on the card against world size 2 over gloo on the CPU
+     (two processes; loss, n_active, gradients; the CPU ranks bit-equal).
+     Serving: an InferenceSession over [live]'s identity with
+     infer_data_parallel 2 clamps to the one card and serves [live]'s
+     bytes; the frame-parallel program over two replicas on the card
+     (the session's devices= seam): one eager chunk with every launch
+     held to its plain version, the captured run byte-equal to [live]'s,
+     launch counts set to 0 just before and read just after per replica
+     (both kernels must launch on each), frames/s beside [live]'s.
+Then a "kernels" JSON line (launches: [slice], [asr]'s default run and
+[parallel]'s captured frame-parallel run), the nvidia-smi line, and last
+the device JSON line.
 """
 
 from __future__ import annotations
@@ -220,9 +242,9 @@ FEED_FPS = 25.0
 # maybeFlushLive) posts a WAV chunk once 16,000 samples are buffered from
 # 4,096-sample callbacks, i.e. every PLAYER_POST samples (1.024 s at 16
 # kHz); the server's HubertStreamer turns each post into the whole frames
-# of 640 samples it completes (25 or 26). 256 frames (10.24 s of speech,
-# ten posts) keep the script well inside its time limit.
-LATENCY_FRAMES = 256
+# of 640 samples it completes (25 or 26). 128 frames (5.12 s of speech,
+# five posts) keep the script well inside its time limit.
+LATENCY_FRAMES = 128
 PLAYER_POST = 16384
 RECIPE_ARGS = ["--res", "128", "--grid", "64", "--frames", "8",
                "--num-rays", "8192", "--head-iters", "200", "--warmup",
@@ -2743,6 +2765,506 @@ def train_profile(step, what: str) -> list:
     return lines
 
 
+# ---- this slice: patch LPIPS, the staged training composite, parallel/
+
+# the staged step at the production point (the CLI's stage-2 budget from
+# the Config's train_stage2_frac 0.34 of the 49,152-ray budget), timed in
+# turns against the single-pass compacted step
+STAGE_SPLIT, STAGE2_FRAC = 8, 0.34
+STAGE_STEPS = 15
+# the CLI runs of [patch] and [parallel]: head steps on [cli]'s dataset
+PAR_STEPS = 100
+
+
+def _world48():
+    """The 48² parity world of [train]: the oracle's frame 0, grid 32, S 8,
+    the seeded field's state and the two-blob occupancy's settings."""
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import SyntheticTalkingHead
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.render import RenderSettings
+
+    G, R = 32, 48
+    ds = SyntheticTalkingHead(num_frames=8, H=R, W=R)
+    settings = RenderSettings(bound=1.0, cascade=1, grid_size=G,
+                              max_steps=8, dt=2 * 3 ** 0.5 / G, num_cand=28)
+    init = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    return ds, settings, init, ds.frame(0)
+
+
+def _step48(d, ds, settings, init, frame, draws, step, **kw) -> tuple:
+    """One head step of the 48² world on device d -> (metrics as Python
+    numbers, gradients)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.data import two_blob_occupancy
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.render import init_occupancy_state
+    from lzzx_nerf_tpu_torch.train import (HeadOptimizer, TrainState,
+                                           make_train_step)
+
+    field = NeRFField(audio_in_dim=ds.audio_dim, ind_num=64).to(d)
+    field.load_state_dict(init)
+    st = TrainState.create(field, HeadOptimizer(
+        field.named_parameters(), 1e-2, 1e-3, 100))
+    st.step = step
+    occ = init_occupancy_state(settings, d)._replace(
+        occ=two_blob_occupancy(settings.grid_size, d))
+    fn = make_train_step(field, settings, H=ds.H, W=ds.W,
+                         intrinsics=ds.intrinsics, iters=100, **kw)
+    b = {k: int(v) if k == "index" else
+         torch.as_tensor(np.array(v), device=d) for k, v in frame.items()}
+    m = fn(st, occ, b, draws=draws)
+    return ({k: (v.item() if torch.is_tensor(v) else v)
+             for k, v in m.items()}, _grads_of(field))
+
+
+def stage_parity(dev) -> tuple:
+    """One staged compacted step at step 32 (48², grid 32, 1,024 rays,
+    ray budget 1,024, train_stage_split 4) on `dev` and on the CPU from
+    one seeded init and the same draws, at a stage-2 budget of 64 (the
+    survivors overflow it and end at the split) and 1,024 (every survivor
+    fits): the loss and gradients to [train]'s tolerances, n_stage2 and
+    n_stage2_over equal -> (ok, report lines)."""
+    import torch
+
+    ds, settings, init, frame = _world48()
+    N, S = 1024, settings.max_steps
+    g = torch.Generator().manual_seed(5)
+    draws = {"inds": torch.randint(0, ds.H * ds.W, (N,), generator=g),
+             "noise": torch.rand((N,), generator=g),
+             "eye_jitter": torch.rand((1,), generator=g),
+             "reg_delta": torch.rand((N * S, 3), generator=g)}
+    ok, lines = True, []
+    for stage2 in (64, 1024):
+        seen = {}
+
+        def build(d):
+            m, grads = _step48(d, ds, settings, init, frame, draws, 32,
+                               num_rays=N, train_budget=N,
+                               train_stage_split=4,
+                               train_stage2_budget=stage2)
+            seen[d.type] = (m["n_stage2"], m["n_stage2_over"])
+            return m["loss"], grads
+
+        p_ok, line = _card_vs_cpu(
+            dev, build, f"[train] card vs CPU, staged compacted step 32 "
+            f"(48², grid 32, {N} rays, split 4, stage-2 budget {stage2})")
+        same = seen["cpu"] == seen[dev.type]
+        over = seen["cpu"][1] > 0 if stage2 == 64 else seen["cpu"][1] <= 0
+        ok &= p_ok and same and over
+        lines.append(f"{line}; n_stage2, over: card {seen[dev.type]}, CPU "
+                     f"{seen['cpu']} {'OK' if same and over else 'FAIL'}")
+    return ok, lines
+
+
+def patch_parity(dev) -> tuple:
+    """One patch step at step 32 (48², grid 32, patch_size 32: 1,024 rays
+    in one patch, 0.1 x LPIPS on the fixed-seed backbone) on `dev` and on
+    the CPU from one seeded init and the same draws -> (ok, report line).
+    The tables are drawn in ±0.5, as [torso]'s are: at the ±1e-4 init a
+    hidden unit's pre-activation can sit within rounding of zero, and the
+    card and the CPU then take the ReLU's two branches for it (one unit
+    of unc_net, 33 of its 1,152 input weights, did at seed 6)."""
+    import torch
+
+    from lzzx_nerf_tpu_torch.train import lpips as lpips_mod
+    from lzzx_nerf_tpu_torch.utils.rays import patch_inds
+
+    ds, settings, init, frame = _world48()
+    N, S = 1024, settings.max_steps
+    g = torch.Generator().manual_seed(6)
+    init = {k: ((torch.rand(v.shape, generator=g) - 0.5)
+                if k.startswith("encoder_") else v)
+            for k, v in init.items()}
+    draws = {"inds": patch_inds(ds.H, ds.W, N, 32, g),
+             "noise": torch.rand((N,), generator=g),
+             "eye_jitter": torch.rand((1,), generator=g),
+             "reg_delta": torch.rand((N * S, 3), generator=g)}
+
+    def build(d):
+        m, grads = _step48(d, ds, settings, init, frame, draws, 32,
+                           num_rays=N, patch_size=32,
+                           lpips_params=lpips_mod.random_params(device=d))
+        return m["loss"], grads
+
+    return _card_vs_cpu(dev, build, f"[patch] card vs CPU, patch step 32 "
+                        f"(48², grid 32, one 32² patch, LPIPS on the "
+                        f"fixed-seed backbone)")
+
+
+def stage_production(run, dev, smi: str) -> tuple:
+    """The staged compacted step against the single-pass one at the
+    production point, over the [train] run's field and grid (512², grid
+    128, S 16, 65,536 rays, budget 49,152): STAGE_STEPS steps of each in
+    four alternating turns, split STAGE_SPLIT with the CLI's stage-2 budget
+    from STAGE2_FRAC -> (ok, report lines)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.train import make_train_step
+
+    stage2 = max(1024, int(run.budget * STAGE2_FRAC) // 1024 * 1024)
+    staged = make_train_step(run.field, run.settings,
+                             train_budget=run.budget,
+                             train_stage_split=STAGE_SPLIT,
+                             train_stage2_budget=stage2, **run.common)
+    fns = {0: run.step_compact, STAGE_SPLIT: staged}
+    t_step = {0: [], STAGE_SPLIT: []}
+    peak, n2, losses = {}, [], {0: [], STAGE_SPLIT: []}
+    it = 10_000
+    for turn in range(4):
+        split = STAGE_SPLIT if turn % 2 else 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in range(STAGE_STEPS):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            m = fns[split](run.state, run.occ,
+                           run.frames[it % len(run.frames)], run.gen)
+            torch.cuda.synchronize()
+            t_step[split].append(time.perf_counter() - a)
+            losses[split].append(float(m["loss"]))
+            if split:
+                n2.append(int(m["n_stage2"]))
+            it += 1
+        peak[split] = max(peak.get(split, 0.0),
+                          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+    def rate(ts):
+        # the first steps of each turn warm up
+        return 1.0 / float(np.median(ts))
+
+    n2 = np.asarray(n2)
+    ok = all(np.isfinite(v).all() for v in losses.values())
+    r0, r8 = rate(t_step[0]), rate(t_step[STAGE_SPLIT])
+    return ok, [
+        f"[train] staged vs single-pass compacted step at the production "
+        f"point (512², grid 128, S 16, 65,536 rays, budget {run.budget}), "
+        f"{STAGE_STEPS} steps x 2 turns each, alternating: split 0 "
+        f"{r0:.2f} steps/s (median {1e3 / r0:.2f} ms), split "
+        f"{STAGE_SPLIT} (stage-2 budget {stage2}) {r8:.2f} steps/s (median "
+        f"{1e3 / r8:.2f} ms), ratio {r8 / r0:.3f}; n_stage2 max "
+        f"{int(n2.max())} mean {float(n2.mean()):.0f} of {stage2}, "
+        f"{int((n2 > stage2).sum())} of {len(n2)} steps over; peak memory "
+        f"split 0 {peak[0]:.2f} GiB, split {STAGE_SPLIT} "
+        f"{peak[STAGE_SPLIT]:.2f} GiB [{smi}] {'OK' if ok else 'FAIL'}"]
+
+
+@contextlib.contextmanager
+def _group_of_one(dev):
+    """A torch.distributed group of this process alone (NCCL on the card,
+    gloo on the CPU), destroyed on exit."""
+    import torch.distributed as dist
+
+    from lzzx_nerf_tpu_torch.parallel.distributed import backend_for
+
+    dist.init_process_group(backend_for(dev), store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_production(run, dev, smi: str) -> tuple:
+    """The data-parallel compacted step at world size 1 (NCCL, a group of
+    one: the gather of the per-ray outputs, the summed gradients, every
+    collective of the path) against the plain compacted step at the
+    production point, over the [train] run's field: STAGE_STEPS steps of
+    each in four alternating turns, then torch.profiler's top kernels of
+    one data-parallel step -> (ok, report lines)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.parallel import data_sharding, make_mesh
+    from lzzx_nerf_tpu_torch.train import make_train_step
+
+    lines = []
+    with _group_of_one(dev) as group:
+        sh = data_sharding(make_mesh("data", [dev], group=group))
+        dp = make_train_step(run.field, run.settings,
+                             train_budget=run.budget, data_sharding=sh,
+                             **run.common)
+        fns = {"plain": run.step_compact, "dp": dp}
+        t_step = {"plain": [], "dp": []}
+        it = 20_000
+        for turn in range(4):
+            name = "dp" if turn % 2 else "plain"
+            for k in range(STAGE_STEPS):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                m = fns[name](run.state, run.occ,
+                              run.frames[it % len(run.frames)], run.gen)
+                torch.cuda.synchronize()
+                t_step[name].append(time.perf_counter() - a)
+                it += 1
+        ok = bool(np.isfinite(float(m["loss"])))
+        r = {k: 1.0 / float(np.median(v)) for k, v in t_step.items()}
+        lines.append(
+            f"[train] data-parallel compacted step at world size 1 (NCCL) "
+            f"against the plain compacted step at the production point, "
+            f"{STAGE_STEPS} steps x 2 turns each, alternating: plain "
+            f"{r['plain']:.2f} steps/s (median {1e3 / r['plain']:.2f} ms), "
+            f"data-parallel {r['dp']:.2f} steps/s (median "
+            f"{1e3 / r['dp']:.2f} ms), ratio {r['dp'] / r['plain']:.3f} "
+            f"[{smi}] {'OK' if ok else 'FAIL'}")
+        lines += train_profile(
+            lambda k: dp(run.state, run.occ, run.frames[k], run.gen),
+            "one data-parallel compacted step (world size 1)")
+    return ok, lines
+
+
+def _ckpt_updates(ws: str) -> dict:
+    """The newest checkpoint's parameters minus its EMA (the initial
+    values while the EMA has not moved), per parameter, as numpy."""
+    from lzzx_nerf_tpu_torch.serving.state_io import (params_from_jax,
+                                                      read_checkpoint)
+
+    ck = read_checkpoint(os.path.join(ws, "checkpoints"))
+    p = params_from_jax(ck["state"]["params"]["params"])
+    e = params_from_jax(ck["state"]["ema_params"])
+    return {k: (p[k] - e[k]).numpy() for k in p}, int(ck["state"]["step"])
+
+
+def _head_steps_spec(device: str) -> dict:
+    """parallel.steps.head_steps' spec for one compacted step at step 32
+    of the 48² world (1,024 rays, budget 1,024: 512 slots a rank at world
+    size 2, which no shard overflows), draws from a seeded generator."""
+    import numpy as np
+    import torch
+
+    ds, settings, init, frame = _world48()
+    N, S = 1024, settings.max_steps
+    g = torch.Generator().manual_seed(7)
+    draws = {"inds": torch.randint(0, ds.H * ds.W, (N,), generator=g),
+             "noise": torch.rand((N,), generator=g),
+             "eye_jitter": torch.rand((1,), generator=g),
+             "reg_delta": torch.rand((N * S, 3), generator=g)}
+    from lzzx_nerf_tpu_torch.data import two_blob_occupancy
+    from lzzx_nerf_tpu_torch.render import init_occupancy_state
+
+    occ = init_occupancy_state(settings)._replace(
+        occ=two_blob_occupancy(settings.grid_size))
+    return {"device": device,
+            "field": dict(audio_in_dim=ds.audio_dim, ind_num=64),
+            "state": {k: v.numpy() for k, v in init.items()},
+            "settings": dict(bound=1.0, cascade=1,
+                             grid_size=settings.grid_size, max_steps=S,
+                             dt=settings.dt, num_cand=28),
+            "occ": {k: np.asarray(v) for k, v in occ._asdict().items()},
+            "batch": frame,
+            "common": dict(H=ds.H, W=ds.W, intrinsics=ds.intrinsics,
+                           num_rays=N, iters=100),
+            "cases": [{"step": 32, "kw": {"train_budget": N},
+                       "draws": {k: v.numpy() for k, v in draws.items()}}]}
+
+
+def parallel_phase(dev, root: str, smi: str, live: dict) -> tuple:
+    """[patch] and [parallel] -> (ok, report lines, the frame-parallel
+    captured run's launch counts). On [cli]'s 512² dataset, PAR_STEPS head
+    steps each as `python -m lzzx_nerf_tpu_torch.cli` processes: plain,
+    with --patch_size 32 --allow_rand_lpips 1, and with --data_parallel 1
+    (a group of one over NCCL), whose checkpoint is held to the plain
+    one's; --data_parallel 2 on this one-card machine must exit with the
+    JAX CLI's message. One compacted data-parallel step at world size 1 on
+    the card against world size 2 over gloo on the CPU (two processes).
+    Serving: infer_data_parallel 2 clamps to one device and serves
+    [live]'s bytes; then the frame-parallel program over [dev, dev] (the
+    session's devices= seam): its frames byte-equal to [live]'s, one eager
+    chunk with every launch held to its plain version, the captured run's
+    launches counted per replica (both kernels on each), frames/s."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.parallel.distributed import launch
+    from lzzx_nerf_tpu_torch.parallel.steps import head_steps
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink, RawFileSink
+
+    lines, ok = [], True
+    data = os.path.join(root, "oracle")
+    base = [data, "--asr_model", "deepspeech", "--iters", str(PAR_STEPS),
+            "--eval_interval", "1000", "--train_compact_warmup", "50",
+            "--preload", "1", "--budget_frac", "0.75"]
+    runs = {}
+    for name, more in (("plain", []),
+                       ("patch", ["--patch_size", "32",
+                                  "--allow_rand_lpips", "1"]),
+                       ("dp1", ["--data_parallel", "1"])):
+        ws = os.path.join(root, f"par_{name}")
+        rc, sec, out = _cli(base + ["--workspace", ws] + more)
+        its = re.findall(r"\(([0-9.]+) it/s\)", out)
+        runs[name] = (rc, sec, its, ws, out)
+        r_ok = rc == 0 and "training done" in out
+        if name == "patch":
+            r_ok &= "--patch_size > 1 LPIPS weights: RANDOM" in out
+        if name == "dp1":
+            r_ok &= "[INFO] data-parallel over 1 devices" in out
+        ok &= r_ok
+        if not r_ok:
+            lines += [f"[parallel]   {ln}" for ln in out.splitlines()[-15:]]
+    (rc_p, s_p, i_p, _, _), (_, s_l, i_l, _, _), (rc_d, s_d, i_d, _, _) = (
+        runs["plain"], runs["patch"], runs["dp1"])
+    lines.append(
+        f"[patch] the CLI's head, {PAR_STEPS} steps at 512² (grid 128, "
+        f"65,536 rays; compacted from 50): --patch_size 32 "
+        f"--allow_rand_lpips 1 logged {i_l} it/s ({s_l:.1f} s wall with "
+        f"process start), the plain head {i_p} it/s ({s_p:.1f} s) [{smi}] "
+        f"{'OK' if runs['patch'][0] == 0 else 'FAIL'}")
+    # --data_parallel 1 against the plain run, one step each in this
+    # process: after 100 steps two plain runs on the card part as much as
+    # either does from the data-parallel one (the tables' atomic
+    # scatter-adds sum in a run-dependent order, and Adam's first steps
+    # turn near-zero gradients into full-size moves), so the checkpoints
+    # are held to the [train] rule after the first step
+    from lzzx_nerf_tpu_torch import cli
+
+    one = base[:4] + ["1"] + base[5:]
+    for name, more in (("plain1", []), ("dp1_1", ["--data_parallel", "1"])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(one + ["--workspace", os.path.join(root, f"par_{name}"),
+                            *more])
+    up_p, st_p = _ckpt_updates(os.path.join(root, "par_plain1"))
+    up_d, st_d = _ckpt_updates(os.path.join(root, "par_dp1_1"))
+    worst, failed = {}, []
+    c_ok = (st_p == st_d == 1 and rc_p == 0 and rc_d == 0
+            and _grads_agree(up_d, up_p, worst, failed))
+    ok &= c_ok
+    lines.append(
+        f"[parallel] --data_parallel 1 (NCCL, a group of one): {PAR_STEPS} "
+        f"steps logged {i_d} it/s ({s_d:.1f} s wall), the plain run "
+        f"{i_p} it/s (both from step 0, with the warm-up); after one step "
+        f"its checkpoint's parameter moves against the plain run's, "
+        f"largest error / largest move per group "
+        f"{ {k: f'{v:.2e}' for k, v in sorted(worst.items())} } "
+        f"{'OK' if c_ok else f'FAIL {failed}'} [{smi}]")
+    rc, sec, out = _cli(base + ["--workspace", os.path.join(root, "par_dp2"),
+                                "--data_parallel", "2"])
+    e_ok = (rc != 0 and "--data_parallel 2 but only 1 devices visible"
+            in out and "training done" not in out)
+    ok &= e_ok
+    lines.append(f"[parallel] --data_parallel 2 on one card: rc {rc} "
+                 f"({sec:.1f} s), "
+                 f"{[ln for ln in out.splitlines() if 'data_parallel' in ln][-1:]}"
+                 f" {'OK' if e_ok else 'FAIL'}")
+
+    # one compacted data-parallel step: world size 1 on the card, world
+    # size 2 over gloo on the CPU
+    t1 = time.perf_counter()
+    with _group_of_one(dev):
+        card = head_steps(_head_steps_spec("cuda"))[0]
+    cpu = launch(head_steps, 2, args=(_head_steps_spec("cpu"),),
+                 device="cpu", threads=2)
+    same_ranks = cpu[0][0]["digest"] == cpu[1][0]["digest"]
+    worst, failed = {}, []
+    g_ok = _grads_agree(card["grads"], cpu[0][0]["grads"], worst, failed)
+    m_c, m_g = card["metrics"], cpu[0][0]["metrics"]
+    loss_err = abs(m_c["loss"] - m_g["loss"]) / abs(m_g["loss"])
+    d_ok = (g_ok and same_ranks and loss_err <= TRAIN_LOSS_RTOL
+            and m_c["n_active"] == m_g["n_active"])
+    ok &= d_ok
+    lines.append(
+        f"[parallel] one compacted data-parallel step 32 (48², grid 32, "
+        f"1,024 rays, budget 1,024): world size 1 on the card against world "
+        f"size 2 over gloo on the CPU: loss {m_c['loss']:.7f} vs "
+        f"{m_g['loss']:.7f} (rel err {loss_err:.2e}, tol {TRAIN_LOSS_RTOL}),"
+        f" n_active {m_c['n_active']} vs {m_g['n_active']} (worst shard "
+        f"over {m_g['n_active_over']}), the two CPU ranks bit-equal "
+        f"{same_ranks}; largest gradient error / largest gradient per group "
+        f"{ {k: f'{v:.2e}' for k, v in sorted(worst.items())} } "
+        f"{'OK' if d_ok else f'FAIL {failed}'} "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # serving: infer_data_parallel 2 on one card, then the frame-parallel
+    # program over two replicas on it
+    ident, feats, offline = live["ident"], live["feats"], live["offline"]
+    cfg = live["cfg"].replace(infer_data_parallel=2)
+
+    def settled(sess):
+        for _ in range(4):
+            r0 = sess.rebuilds
+            sess.set_audio_features(feats)
+            sess.run(NullSink())
+            if sess.rebuilds == r0 and not sess.rebuild_pending():
+                return True
+        return False
+
+    t1 = time.perf_counter()
+    logs = []
+    one = InferenceSession(cfg, device=dev, log=logs.append)
+    one.load_model(ident["data"], ident["workspace"])
+    s_one = settled(one)
+    path = os.path.join(root, "dp_one.raw")
+    one.set_audio_features(feats)
+    one.run(RawFileSink(path))
+    with open(path, "rb") as f:
+        one_same = f.read() == offline
+    c_ok = (s_one and one_same and one._replicas == []
+            and any("serving serially" in m for m in logs))
+    ok &= c_ok
+    lines.append(f"[parallel] infer_data_parallel 2 on one card: serial "
+                 f"(chunk {one.chunk}), plan settled {s_one}, {len(feats)} "
+                 f"frames byte-equal to [live]'s {one_same} "
+                 f"{'OK' if c_ok else 'FAIL'} "
+                 f"({time.perf_counter() - t1:.1f} s)")
+    del one
+
+    t1 = time.perf_counter()
+    sess = InferenceSession(cfg, device=dev, devices=[dev, dev],
+                            log=lambda m: None)
+    sess.load_model(ident["data"], ident["workspace"])
+    s_dp = settled(sess)
+    frame_bytes = sess.H * sess.W * 3
+    field_checks, select_checks, eager = [], [], {}
+    sess.graph = False
+    with kernels_held(field_checks, select_checks):
+        sess.set_audio_features(feats[:sess.chunk])
+        sess.run(on_frame=lambda i, b: eager.__setitem__(i, b))
+    sess.graph = None
+    e_same = all(eager[i].tobytes() == offline[i * frame_bytes:
+                                               (i + 1) * frame_bytes]
+                 for i in range(sess.chunk))
+    f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+    s_ok = bool(select_checks) and all(e for _, e, _ in select_checks)
+    path = os.path.join(root, "dp_two.raw")
+    sess.set_audio_features(feats)
+    sess.run(NullSink())         # capture each replica's graph, warm up
+    sess.set_audio_features(feats)
+    kernels.reset_launches()
+    sess.reset_replica_launches()
+    n, dt = sess.run(RawFileSink(path))
+    torch_sync(dev)
+    launches = dict(kernels.launches)
+    per_rep = sess.replica_launches
+    with open(path, "rb") as f:
+        dp_same = f.read() == offline
+    p_ok = (s_dp and dp_same and e_same and f_ok and s_ok
+            and len(per_rep) == 2 and all(dense_launched(r) for r in per_rep)
+            and dense_launched(launches))
+    ok &= p_ok
+    lines.append(
+        f"[parallel] frame-parallel over 2 replicas on {dev} (chunk "
+        f"{sess.chunk}, plan settled {s_dp}, K2={sess.k2} budget="
+        f"{sess.budget} stage2={sess.stage2_budget}): {n} captured frames "
+        f"byte-equal to [live]'s serial program {dp_same}, "
+        f"{n / dt:.2f} frames/s against [live]'s run() "
+        f"{live['fps']:.2f}; launches per replica {per_rep} (total "
+        f"{launches}); eager chunk: field within FIELD_TOL at "
+        f"{sum(e['ok'] for _, e in field_checks)} of {len(field_checks)} "
+        f"launches (max share of tol colour "
+        f"{max((e['color_share'] for _, e in field_checks), default=0):.3f}"
+        f"), select equal at {sum(e for _, e, _ in select_checks)} of "
+        f"{len(select_checks)}, frames byte-equal {e_same} [{smi}] "
+        f"{'OK' if p_ok else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+    del sess
+    torch.cuda.empty_cache()
+    return ok, lines, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=16,
@@ -3071,6 +3593,15 @@ def main() -> int:
     for line in train_profile(lambda k: run.train_step(it0 + k, True),
                               "one compacted step"):
         log(line)
+    # the staged training composite: card vs CPU, then timed against the
+    # single-pass compacted step at the production point; a patch step
+    s_ok, s_lines = stage_parity(dev)
+    sp_ok, sp_lines = stage_production(run, dev, smi)
+    pa_ok, pa_line = patch_parity(dev)
+    dp_ok, dp_lines = dp_production(run, dev, smi)
+    for line in s_lines + sp_lines + [pa_line] + dp_lines:
+        log(line)
+    p_ok &= s_ok and sp_ok and pa_ok and dp_ok
     ok &= p_ok and t_ok
     log(f"[train] {'OK' if p_ok and t_ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -3163,6 +3694,16 @@ def main() -> int:
             ok &= p_ok
             log(f"[{name}] {'OK' if p_ok else 'FAIL'} "
                 f"({time.perf_counter() - t0:.1f} s)")
+        # patch LPIPS and --data_parallel on [cli]'s dataset; the
+        # frame-parallel session over [live]'s identity, whose captured
+        # run's counts join the main path's
+        t0 = time.perf_counter()
+        d_ok, lines, par_launches = parallel_phase(dev, root, smi, live)
+        for line in lines:
+            log(line)
+        ok &= d_ok
+        log(f"[parallel] {'OK' if d_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
         # --asr on [cli]'s workspace: the counts of its default run join
         # the main path's
         t0 = time.perf_counter()
@@ -3180,8 +3721,9 @@ def main() -> int:
         log(f"[preprocess] {'OK' if p_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
 
-    # launches: the main path's ([slice]) and --asr's default run, the
-    # enc_x entry's from [reference]'s captured run; times per frame: both
+    # launches: the main path's ([slice]), --asr's default run and the
+    # frame-parallel captured run ([parallel]), the enc_x entry's from
+    # [reference]'s captured run; times per frame: both
     # field launches (stage 1, stage 2) and both select launches (short,
     # long bucket) of the first frame, summed
     def total(rows, key):
@@ -3192,7 +3734,8 @@ def main() -> int:
          "source": "lzzx_nerf_tpu_torch/csrc/fused_field.cu",
          "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
          "launches": (launches["fused_field"]
-                      + asr_launches["fused_field"]),
+                      + asr_launches["fused_field"]
+                      + par_launches["fused_field"]),
          "max_abs_err": max(e["err"] for _, e in field_checks),
          "ms": total(field_rows, "ms"),
          "plain_ms": total(field_rows, "plain_ms"),
@@ -3203,7 +3746,8 @@ def main() -> int:
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",
          "launches": (launches["march_select"]
-                      + asr_launches["march_select"]),
+                      + asr_launches["march_select"]
+                      + par_launches["march_select"]),
          "max_abs_err": max(r["err"] for r in sel_rows),
          "ms": total(sel_rows, "ms"), "plain_ms": total(sel_rows, "plain_ms"),
          "bound_ms": total(sel_rows, "bound"),

@@ -7,7 +7,9 @@ two Pallas kernels of the serving frame (the fused field MLP and the nb5w
 march select) are hand-written CUDA kernels for Hopper (``csrc/``), built
 with nvcc at first use (``kernels.py``). Training runs PyTorch autograd
 (the JAX package differentiates plain XLA there: no kernel to port), and
-LPIPS's convolutions are PyTorch's.
+LPIPS's convolutions are PyTorch's. ``parallel/`` trains data-parallel
+over a torch.distributed group (NCCL on GPUs) and serves frame-parallel
+over several devices.
 
 The package imports torch, numpy and the standard library only — never
 JAX and never ``lzzx_nerf_tpu``. Entry points run on ``cuda`` unless the

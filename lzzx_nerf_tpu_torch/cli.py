@@ -9,6 +9,8 @@ Usage (python -m lzzx_nerf_tpu_torch.cli ...):
   data/<id>/ -O --test 1 --test_train 1 --torso 1 --workspace ws
   data/<id>/ -O --save_mesh 1 --workspace ws
   data/<id>/ -O --asr 1 --asr_wav speech.wav --workspace ws
+  data/<id>/ -O --iters 100000 --workspace ws --data_parallel 2
+  data/<id>/ -O --iters 100000 --workspace ws --patch_size 32
 
 The flags, their defaults and -O are the JAX package's (one per field of
 Config); --device (default cuda, "cpu" for the plain PyTorch path) is the
@@ -25,10 +27,20 @@ torso stage and --test --torso, the reference's tiled torso (the JAX CLI's
 rule: any encoder but dense takes the tiled torso): the fields a reference
 checkpoint imported with tools/import_reference_ckpt.py holds.
 
+--data_parallel N trains the head over N ranks, one per GPU (NCCL; with
+--device cpu, N processes over gloo): under torchrun the CLI joins its
+group, otherwise it starts the ranks itself; every rank samples the same
+rays and renders its slice of them, rank 0 logs, evaluates and writes the
+checkpoints, and a machine with fewer GPUs exits with the JAX CLI's
+message. The torso stage is not sharded (as in JAX). --patch_size > 1
+samples whole patches and adds 0.1 x their LPIPS (the weights' provenance
+is gated as for --finetune_lips); --train_stage_split N runs the compacted
+step through the staged composite.
+
 What the port does not have yet is refused with the ROADMAP item that
-ports it: --data_parallel, --infer_data_parallel, --patch_size > 1,
---train_stage_split > 0, --emb, --exp_eye 0, and the serving alternates
-of Queue 1 item 8.
+ports it (Queue 1 item 8): --emb, --exp_eye 0, and the serving alternates
+(the march variants and groups, --infer_march_prepass 0,
+--infer_table_bf16 0, --infer_sample_frac).
 """
 
 from __future__ import annotations
@@ -135,18 +147,12 @@ def unported(cfg: Config, test: bool = False) -> List[str]:
     """What in cfg asks for a path the port's CLI does not have, each with
     the ROADMAP item that ports it."""
     checks = [
-        (cfg.data_parallel > 0, f"--data_parallel (parallel/): {Q1} 7"),
-        (cfg.patch_size > 1, f"--patch_size > 1 (patch LPIPS): {Q1} 5"),
-        (cfg.train_stage_split > 0, "--train_stage_split > 0 (the staged "
-         f"training composite): {Q1} 5"),
         (cfg.emb, f"--emb (label audio features): {Q1} 8"),
         (not cfg.exp_eye, f"--exp_eye 0 (a field without the eye branch): "
          f"{Q1} 8"),
     ]
     if test:
         checks += [
-            (cfg.infer_data_parallel >= 2, "--infer_data_parallel "
-             f"(frame-parallel rendering, parallel/): {Q1} 7"),
             (cfg.infer_march_group not in (1, 2), "--infer_march_group "
              f"{cfg.infer_march_group}: {Q1} 8"),
             (cfg.infer_march_variant != "nb5w", "--infer_march_variant "
@@ -229,33 +235,70 @@ def _lpips_params_or_die(cfg: Config, trainer, why: str, device):
 def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
               ) -> Dict:
     """Head training (or, with --torso, the torso stage): full-path steps,
-    compacted steps from train_compact_warmup on, the lips step on odd
-    iterations under --finetune_lips, the grid refresh every
-    update_extra_interval steps, a checkpoint each epoch and an eval
-    (PSNR, LPIPS, validation/ep####_i.png) every eval_interval epochs.
-    A resumed run continues at the checkpoint's step with the draws an
-    unbroken run would make (the checkpoint holds the step generator and
-    the frame order's state). stop_after: end after that many steps of
-    this call, at the epoch's end. Returns {"state", "occ", "schedule":
-    (iteration, "full" | "compact" | "lips", refreshed) per step}."""
+    compacted steps from train_compact_warmup on (staged with
+    --train_stage_split), the lips step on odd iterations under
+    --finetune_lips, the grid refresh every update_extra_interval steps, a
+    checkpoint each epoch and an eval (PSNR, LPIPS,
+    validation/ep####_i.png) every eval_interval epochs. A resumed run
+    continues at the checkpoint's step with the draws an unbroken run
+    would make (the checkpoint holds the step generator and the frame
+    order's state). stop_after: end after that many steps of this call,
+    at the epoch's end. --data_parallel N: the stage trains over N ranks
+    (_data_parallel; the torso stage replicated on each, as the JAX CLI
+    does not shard it); a rank's call returns like a single-device one,
+    and a call that started the ranks returns {}. Returns {"state",
+    "occ", "schedule": (iteration, "full" | "compact" | "lips",
+    refreshed) per step}."""
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    _refuse(cfg)
+    sharding = None
+    if cfg.data_parallel > 0:
+        import torch.distributed as dist
+
+        alone = not dist.is_initialized()
+        sharding = _data_parallel(cfg, dev, stop_after)
+        if sharding is None:
+            # this process started the ranks, and they have finished
+            return {}
+        if alone and sharding.size == 1:
+            # the group of one this call formed ends with it
+            try:
+                return _run_train(cfg, sharding.mesh.device, stop_after,
+                                  sharding)
+            finally:
+                dist.destroy_process_group()
+        dev = sharding.mesh.device
+    return _run_train(cfg, dev, stop_after, sharding)
+
+
+def _run_train(cfg: Config, dev: torch.device, stop_after: Optional[int],
+               sharding) -> Dict:
     from .data.provider import NeRFDataset
+    from .parallel.distributed import is_coordinator
     from .render.grid_update import make_density_grid_update
     from .train.metrics import LPIPSMeter, PSNRMeter
     from .train.optim import HeadOptimizer
     from .train.trainer import (TrainState, Trainer, make_eval_step,
                                 make_train_step)
-    from .utils.device import resolve_device
 
-    dev = resolve_device(device)
-    _refuse(cfg)
+    lead = is_coordinator()
     ds = NeRFDataset(cfg, type="train")
     trainer = Trainer(cfg.workspace, max_keep_ckpt=cfg.max_keep_ckpt)
+    if not lead:
+        # rank-0-only IO: concurrent appends interleave, concurrent
+        # checkpoint writes of one workspace race
+        trainer.log = trainer.scalar = trainer.save_checkpoint = _quiet
+    if sharding is not None:
+        trainer.log(f"[INFO] data-parallel over {sharding.size} devices")
     trainer.log(f"[INFO] {len(ds.poses)} train frames, res {ds.H}x{ds.W}, "
                 f"encoder={cfg.encoder}, iters={cfg.iters}")
     # one JSON document per line, appended per run; the serving session
     # adopts the last line when it loads this workspace
-    with open(os.path.join(cfg.workspace, "opt.txt"), "a") as f:
-        f.write(cfg.to_json(indent=None) + "\n")
+    if lead:
+        with open(os.path.join(cfg.workspace, "opt.txt"), "a") as f:
+            f.write(cfg.to_json(indent=None) + "\n")
     if cfg.torso:
         return run_train_torso(cfg, ds, trainer, dev, stop_after)
     val = NeRFDataset(cfg, type="val")
@@ -271,17 +314,28 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
 
     common = dict(H=ds.H, W=ds.W, intrinsics=ds.intrinsics,
                   num_rays=cfg.num_rays, iters=cfg.iters,
-                  unc_loss=cfg.unc_loss, amb_aud_loss=cfg.amb_aud_loss,
+                  patch_size=cfg.patch_size, unc_loss=cfg.unc_loss,
+                  amb_aud_loss=cfg.amb_aud_loss,
                   amb_eye_loss=cfg.amb_eye_loss, lambda_amb=cfg.lambda_amb,
                   ind_dim=cfg.ind_dim, ema_decay=cfg.ema_decay,
                   ema_interval=cfg.ema_update_interval,
                   update_extra_interval=cfg.update_extra_interval,
-                  train_camera=cfg.train_camera)
+                  train_camera=cfg.train_camera, data_sharding=sharding)
+    # patch-sampled training carries the reference's 0.1 x LPIPS patch
+    # term, not under the lips finetune
+    patch_lpips = (_lpips_params_or_die(cfg, trainer, "--patch_size > 1",
+                                        dev)
+                   if cfg.patch_size > 1 and not cfg.finetune_lips else None)
     train_budget = (int(cfg.num_rays * cfg.train_budget_frac) // 1024 * 1024
                     if cfg.train_budget_frac > 0 else 0)
-    step_fn = make_train_step(field, settings, **common)
-    compact_fn = (make_train_step(field, settings, train_budget=train_budget,
-                                  **common) if train_budget > 0 else None)
+    stage2 = (max(1024, int(train_budget * cfg.train_stage2_frac)
+                  // 1024 * 1024) if cfg.train_stage_split > 0 else 0)
+    step_fn = make_train_step(field, settings, lpips_params=patch_lpips,
+                              **common)
+    compact_fn = (make_train_step(
+        field, settings, lpips_params=patch_lpips, train_budget=train_budget,
+        train_stage_split=cfg.train_stage_split, train_stage2_budget=stage2,
+        **common) if train_budget > 0 else None)
     # the lips finetune alternates the lips-crop LPIPS step with the
     # normal step every other iteration
     lips_fn = None
@@ -295,6 +349,9 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
                              intrinsics=ds.intrinsics, ind_dim=cfg.ind_dim,
                              use_ema=cfg.use_ema)
     refresh = make_density_grid_update(field, settings)
+    budgets = {"train_budget": train_budget, "stage2": stage2,
+               "split": cfg.train_stage_split,
+               "sharded": sharding is not None}
 
     t_start = time.time()
     it = start = state.step
@@ -323,6 +380,9 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
             refreshed = it % cfg.update_extra_interval == 0
             if refreshed:
                 occ = refresh(occ, batch["auds"], batch["eye"], gen)
+                if sharding is not None:
+                    # replicated state stays bit-equal across the ranks
+                    sharding.broadcast_(occ)
             if lips_fn is not None and it % 2 == 1:
                 fn, kind = lips_fn, "lips"
             elif compact_fn is not None and it >= cfg.train_compact_warmup:
@@ -333,9 +393,9 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
             schedule.append((it, kind, refreshed))
             it += 1
             if it % 100 == 0:
-                _log_step(trainer, metrics, it, t_start, start, train_budget)
+                _log_step(trainer, metrics, it, t_start, start, budgets)
         trainer.save_checkpoint(state, occ, gen, extra=_order_state(ds))
-        if epoch % eval_interval == 0:
+        if epoch % eval_interval == 0 and lead:
             psnr_meter.clear()
             lpips_meter.clear()
             for vi, vb in enumerate(val.frames(shuffle=False)):
@@ -357,6 +417,65 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
     trainer.save_checkpoint(state, occ, gen, extra=_order_state(ds))
     trainer.log("[INFO] training done")
     return {**done, "occ": occ}
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
+def _data_parallel(cfg: Config, dev: torch.device,
+                   stop_after: Optional[int]):
+    """--data_parallel N -> this rank's DataSharding, or None when this
+    process started the ranks and they have finished. Under torchrun (or
+    in a rank this CLI started) the process joins the group; otherwise it
+    starts N ranks (parallel.distributed.launch: one process per GPU, or
+    N gloo processes under --device cpu) that run the CLI's training, or
+    for N = 1 forms a group of one itself. Exits with the JAX CLI's
+    message when fewer GPUs (or ranks) than N are there."""
+    import torch.distributed as dist
+
+    from .parallel import data_sharding, make_mesh
+    from .parallel.distributed import (backend_for, init_distributed,
+                                       launch, rank_device)
+
+    n = cfg.data_parallel
+    joined = init_distributed(dev)
+    if joined:
+        have = dist.get_world_size()
+    else:
+        have = torch.cuda.device_count() if dev.type == "cuda" else n
+    if have < n:
+        raise SystemExit(f"--data_parallel {n} but only {have} devices "
+                         "visible")
+    if joined and have != n:
+        raise SystemExit(f"--data_parallel {n} in a group of {have} ranks: "
+                         f"pass --data_parallel {have}")
+    if not joined and n > 1:
+        # CPU ranks share this process's cores
+        launch(_train_rank, n, args=(cfg, dev.type, stop_after),
+               device=dev.type,
+               threads=(max(1, torch.get_num_threads() // n)
+                        if dev.type == "cpu" else None))
+        return None
+    if joined:
+        rd = rank_device(dev)
+    else:
+        rd = dev
+        if dev.type == "cuda":
+            if dev.index is None:
+                rd = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(rd)
+        # a group of one needs no rendezvous: an in-process store
+        dist.init_process_group(backend_for(dev), store=dist.HashStore(),
+                                rank=0, world_size=1)
+    return data_sharding(make_mesh("data", [rd], group=dist.group.WORLD))
+
+
+def _train_rank(cfg: Config, device: str, stop_after: Optional[int]
+                ) -> None:
+    """A rank started by _data_parallel: the CLI's training in the group
+    launch has joined."""
+    run_train(cfg, device, stop_after)
 
 
 def _order_state(ds) -> dict:
@@ -394,24 +513,41 @@ def _preload(cfg: Config, ds, trainer, dev):
 
 
 def _log_step(trainer, metrics, it: int, t_start: float, start: int,
-              train_budget: int) -> None:
+              budgets: Dict) -> None:
     loss_v, mse_v = float(metrics["loss"]), float(metrics["mse"])
     trainer.log(f"step {it}: loss={loss_v:.5f} mse={mse_v:.5f} "
                 f"({(it - start) / (time.time() - t_start):.2f} it/s)")
     trainer.scalar("train/loss", loss_v, it)
     trainer.scalar("train/mse", mse_v, it)
+    sharded = budgets["sharded"]
     if "n_active" in metrics:
-        # compact-step demand: overflowing rays are left out of the loss
+        # compact-step demand: overflowing rays are left out of the loss.
+        # Under --data_parallel the excess is the worst shard's over its
+        # slots (the summed demand can sit under the budget while one
+        # shard overflows)
         n_act = int(metrics["n_active"])
         trainer.scalar("train/n_active", n_act, it)
         over = int(metrics["n_active_over"])
+        who = ("worst shard exceeds its slots" if sharded
+               else "demand exceeds the budget")
         if over > 0:
             trainer.log(
-                f"[WARN] train-ray budget overflow: demand exceeds the "
-                f"budget by {over} rays (demand {n_act}, budget "
-                f"{train_budget}); overflow rays are dropped from the loss "
-                "(unbiased but noisy) — consider raising "
-                "--train_budget_frac")
+                f"[WARN] train-ray budget overflow: {who} by {over} rays "
+                f"(demand {n_act}, budget {budgets['train_budget']}); "
+                "overflow rays are dropped from the loss (unbiased but "
+                "noisy) — consider raising --train_budget_frac")
+    if "n_stage2" in metrics:
+        n_s2 = int(metrics["n_stage2"])
+        trainer.scalar("train/n_stage2", n_s2, it)
+        over = int(metrics["n_stage2_over"])
+        who = ("worst shard exceeds its stage-2 slots" if sharded
+               else "demand exceeds the stage-2 budget")
+        if over > 0:
+            trainer.log(
+                f"[WARN] staged-eval survivor overflow: {who} by {over} "
+                f"(demand {n_s2}, budget {budgets['stage2']}); overflowing "
+                f"rays truncate at sample {budgets['split']} (biased) — "
+                "raise --train_stage2_frac or set --train_stage_split 0")
 
 
 def run_train_torso(cfg: Config, ds, trainer, dev,

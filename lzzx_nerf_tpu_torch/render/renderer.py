@@ -5,8 +5,8 @@ lzzx_nerf_tpu/render/renderer.py), its per-ray fallback
 render_rays_compact (per-ray windows and the per-ray exact march: odd
 frame sides, infer_block 1); and the training renders: render_rays (the
 full-path march, training and eval, and the serving path at cascade > 1),
-render_rays_train_compact (window-compacted rays) and run_torso (the
-dense torso pass).
+render_rays_train_compact (window-compacted rays, optionally through the
+staged training composite) and run_torso (the dense torso pass).
 
 The JAX package scatters with mode="drop" to sentinel indices; here every
 such scatter writes to one extra discarded row instead, so an out-of-range
@@ -20,7 +20,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.composite import composite_rays, cumprod_seq, exclusive_cumprod
+from ..ops.composite import (composite_rays, cumprod_scan, cumprod_seq,
+                             exclusive_cumprod)
 from ..ops.march import MarchResult, march_rays_uniform
 from ..ops.march2 import (InferenceTables, block_view, column_intervals,
                           compact_rays, default_window_candidates,
@@ -55,6 +56,12 @@ def effective_infer_stage2_budget(budget: int, stage2_budget: int) -> int:
     return stage2_budget or max(1024, budget // 4 // 1024 * 1024)
 
 
+def effective_train_stage2_budget(budget: int, stage2_budget: int) -> int:
+    """The stage-2 slot count the staged training composite uses (0
+    selects the default): what a step's n_stage2 is measured against."""
+    return stage2_budget or max(1024, budget // 2 // 1024 * 1024)
+
+
 def _repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     """x.repeat_interleave(k, dim=0) as a broadcast copy: no output-size
     computation, so it records into a CUDA graph."""
@@ -86,57 +93,71 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 
 def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
                            m, rd: torch.Tensor, B: int, S: int,
-                           stage_split: int, stage2_budget: int):
+                           stage_split: int, stage2_budget: int,
+                           full: bool = False):
     """Two-stage field eval with exact early termination: samples
     [0, split) for all B rays, then [split, S) only for rays still
-    transmissive (T >= T_thresh), compacted into `stage2_budget` slots.
-    Returns (image_premult [B, 3], weights_sum [B], n_stage2)."""
+    transmissive (T >= T_thresh), compacted into `stage2_budget` slots;
+    survivors beyond the slots end at the split. Returns (image_premult
+    [B, 3], weights_sum [B], n_stage2).
+
+    full=True is the training twin (the JAX package's
+    _staged_train_eval_composite): field_apply returns FieldOutputs, and
+    the result is (image_premult, depth, weights_sum, ambient_aud,
+    ambient_eye, uncertainty, n_stage2), the sums composite_rays makes.
+    When every survivor has a slot it is gradient-exact as well: a sample
+    past T < T_thresh adds nothing to any output, so its gradient is 0
+    and its field eval can be skipped. The transmittance products
+    associate as the JAX package's (cumprod_scan when the sigmas carry a
+    gradient, cumprod_seq otherwise)."""
     S1, S2 = stage_split, S - stage_split
+    thr = settings.T_thresh
 
-    def field_eval(pts, dirs):
-        sigma, color = field_apply(pts, dirs)
-        return sigma * settings.density_scale, color
+    def stage(pts, dirs, n, s, deltas, mask, ts, T0=None):
+        out = field_apply(pts, dirs)
+        sigma, color = (out.sigma, out.color) if full else out
+        sig = (sigma * settings.density_scale).reshape(n, s)
+        alpha = (1.0 - torch.exp(-sig * deltas)) * mask
+        P = (cumprod_scan if sig.requires_grad else cumprod_seq)(1.0 - alpha)
+        T = torch.cat([torch.ones_like(P[:, :1]), P[:, :-1]], dim=-1)
+        if T0 is not None:
+            T = T0[:, None] * T
+        proc = (T >= thr) & mask
+        w = alpha * T * proc
+        sums = [torch.einsum("ns,nsc->nc", w, color.reshape(n, s, 3)),
+                w.sum(dim=-1)]
+        if full:
+            sums = [sums[0], torch.sum(w * ts, dim=-1), sums[1],
+                    torch.sum(out.ambient_aud.abs().reshape(n, s) * proc,
+                              dim=-1),
+                    torch.sum(out.ambient_eye.abs().reshape(n, s) * proc,
+                              dim=-1),
+                    torch.sum(w * out.uncertainty.reshape(n, s), dim=-1)]
+        # the inclusive product's last column: T after the stage
+        return sums, P[:, -1]
 
-    sig1, rgb1 = field_eval(m.xyzs[:, :S1].reshape(B * S1, 3),
-                            _repeat_rows(rd, S1))
-    sig1 = sig1.reshape(B, S1)
-    rgb1 = rgb1.reshape(B, S1, 3)
-    mask1 = m.mask[:, :S1]
-    alpha1 = (1.0 - torch.exp(-sig1 * m.deltas[:, :S1])) * mask1
-    # the products of jnp.cumprod's order (ops/composite.py); the JAX
-    # package computes the same inclusive product twice, for T1 and T_end
-    P1 = cumprod_seq(1.0 - alpha1)
-    T1 = torch.cat([torch.ones_like(P1[:, :1]), P1[:, :-1]], dim=-1)
-    w1 = alpha1 * T1 * ((T1 >= settings.T_thresh) & mask1)
-    image = torch.einsum("ns,nsc->nc", w1, rgb1)
-    wsum = w1.sum(dim=-1)
-    T_end = P1[:, -1]
-
+    sums, T_end = stage(m.xyzs[:, :S1].reshape(B * S1, 3),
+                        _repeat_rows(rd, S1), B, S1, m.deltas[:, :S1],
+                        m.mask[:, :S1], m.ts[:, :S1] if full else None)
     if S2 == 0:
         # the split clamped to S: stage 2 is empty (no survivor)
-        return image, wsum, torch.zeros((), dtype=torch.int64,
-                                        device=image.device)
-    surv = (T_end >= settings.T_thresh) & m.mask[:, S1:].any(dim=-1)
+        return (*sums, torch.zeros((), dtype=torch.int64,
+                                   device=T_end.device))
+    surv = (T_end >= thr) & m.mask[:, S1:].any(dim=-1)
     cs2 = compact_rays(surv, stage2_budget)
     idx2 = cs2.ray_idx
-    rd2 = rd.index_select(0, idx2)
+
+    def take(a):
+        return a[:, S1:].index_select(0, idx2)
+
     T0 = T_end.index_select(0, idx2) * cs2.slot_valid
-    xyz2 = m.xyzs[:, S1:].index_select(0, idx2)
-    delta2 = m.deltas[:, S1:].index_select(0, idx2)
-    mask2 = m.mask[:, S1:].index_select(0, idx2) & cs2.slot_valid[:, None]
-
-    sig2, rgb2 = field_eval(xyz2.reshape(stage2_budget * S2, 3),
-                            _repeat_rows(rd2, S2))
-    sig2 = sig2.reshape(stage2_budget, S2)
-    rgb2 = rgb2.reshape(stage2_budget, S2, 3)
-    alpha2 = (1.0 - torch.exp(-sig2 * delta2)) * mask2
-    T2 = T0[:, None] * exclusive_cumprod(1.0 - alpha2)
-    w2 = alpha2 * T2 * ((T2 >= settings.T_thresh) & mask2)
-
-    image = _scatter_add_rows(image, idx2, cs2.slot_valid,
-                              torch.einsum("ns,nsc->nc", w2, rgb2))
-    wsum = _scatter_add_rows(wsum, idx2, cs2.slot_valid, w2.sum(dim=-1))
-    return image, wsum, cs2.n_active
+    sums2, _ = stage(take(m.xyzs).reshape(stage2_budget * S2, 3),
+                     _repeat_rows(rd.index_select(0, idx2), S2),
+                     stage2_budget, S2, take(m.deltas),
+                     take(m.mask) & cs2.slot_valid[:, None],
+                     take(m.ts) if full else None, T0)
+    return (*(_scatter_add_rows(a, idx2, cs2.slot_valid, b)
+              for a, b in zip(sums, sums2)), cs2.n_active)
 
 
 def _single_pass_composite(field_apply: FieldApply, settings: RenderSettings,
@@ -214,7 +235,8 @@ def render_rays_train_compact(
         rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color: torch.Tensor,
         budget: int, noise: Optional[torch.Tensor] = None,
         window_candidates: Optional[int] = None, stage_split: int = 0,
-        aabb: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        stage2_budget: int = 0, aabb: Optional[torch.Tensor] = None
+) -> Dict[str, Any]:
     """render_rays(training=True) for every ray that gets a slot, at a
     fraction of the work: rays whose windows (ray_windows over the
     occupancy's column intervals) are empty render background without a
@@ -225,12 +247,14 @@ def render_rays_train_compact(
     Active rays beyond the budget render as background and get loss weight
     0; the slotted active rays are upweighted by n_active / n_slotted so
     the loss stays an unbiased estimate of the full batch's (`ray_weight`,
-    which sums to N). n_active reports the demand. The staged training
-    composite (stage_split > 0) is not ported."""
-    if stage_split:
-        raise NotImplementedError(
-            "stage_split > 0 (the staged training composite) is not "
-            "ported yet (ROADMAP Queue 1 item 5)")
+    which sums to N). n_active reports the demand.
+
+    0 < stage_split < S: the staged training composite
+    (_staged_eval_composite(full=True)): samples [0, split) for every
+    slotted ray, [split, S) only for rays still transmissive at the split,
+    compacted into effective_train_stage2_budget(budget, stage2_budget)
+    slots; survivors beyond them end at the split (n_stage2 reports the
+    demand). Gradient-exact whenever the survivors fit."""
     N = rays_o.shape[0]
     S = settings.max_steps
     K2 = window_candidates or settings.num_cand + 2
@@ -263,27 +287,40 @@ def render_rays_train_compact(
 
     pts = m.xyzs.reshape(budget * S, 3)
     dirs = _repeat_rows(rd, S)
-    comp = _composite_outputs(field_fn(pts, dirs), m, budget, S, settings)
-    image_c = clip(comp.image + (1.0 - comp.weights_sum)[:, None] * bg_c,
-                   0.0, 1.0)
-    depth_c = clip(comp.depth - nears_c, 0.0) / clip(fars_c - nears_c, 1e-6)
+    staged = 0 < stage_split < S
+    if staged:
+        (img_c, depth_raw, wsum_c, amb_aud_c, amb_eye_c, unc_c,
+         n_stage2) = _staged_eval_composite(
+            field_fn, settings, m, rd, budget, S, stage_split,
+            effective_train_stage2_budget(budget, stage2_budget), full=True)
+    else:
+        comp = _composite_outputs(field_fn(pts, dirs), m, budget, S,
+                                  settings)
+        img_c, depth_raw, wsum_c = comp.image, comp.depth, comp.weights_sum
+        amb_aud_c, amb_eye_c, unc_c = (comp.amb_aud_sum, comp.amb_eye_sum,
+                                       comp.uncertainty_sum)
+    image_c = clip(img_c + (1.0 - wsum_c)[:, None] * bg_c, 0.0, 1.0)
+    depth_c = clip(depth_raw - nears_c, 0.0) / clip(fars_c - nears_c, 1e-6)
 
     def scat(vals, base=None):
         if base is None:
             base = vals.new_zeros((N,) + vals.shape[1:])
         return _set_rows(base, cs.ray_idx, cs.slot_valid, vals)
 
-    return {
+    res = {
         "image": scat(image_c, clip(bg_color, 0.0, 1.0)),
         "depth": scat(depth_c),
-        "weights_sum": scat(comp.weights_sum),
-        "ambient_aud": scat(comp.amb_aud_sum),
-        "ambient_eye": scat(comp.amb_eye_sum),
-        "uncertainty": scat(comp.uncertainty_sum),
+        "weights_sum": scat(wsum_c),
+        "ambient_aud": scat(amb_aud_c),
+        "ambient_eye": scat(amb_eye_c),
+        "uncertainty": scat(unc_c),
         "rays": (pts, dirs, m.mask.reshape(-1)),
         "ray_weight": ray_weight,
         "n_active": cs.n_active,
     }
+    if staged:
+        res["n_stage2"] = n_stage2
+    return res
 
 
 def render_rays_compact(

@@ -30,6 +30,13 @@ eval budget, long-bucket rays > long budget), the session warns, streams
 the chunk as rendered and rebuilds the plan (and captures the graph
 again) at the next chunk boundary.
 
+Frame-parallel serving (InferenceSession, infer_data_parallel >= 2 over
+two or more devices; the JAX session's make_render_dp): the chunk's
+smooth-lips chain runs serially, then each device renders its share of
+whole frames from its own copy of the identity (_Replica), each with its
+own buffers and CUDA graph; the counters of every frame are checked as
+in the serial program, so the escapes see the worst device.
+
 Diverges from the JAX session: stage-2 survivors over the stage-2 budget
 (rays still transmissive at the split, whose samples after it the
 overflow drops) are an escape too. The JAX session warns and keeps
@@ -190,6 +197,8 @@ class _Session:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches: Dict[str, int] = {}
         self.captures = 0
+        # frame-parallel serving: the devices' copies of the identity
+        self._replicas: List[_Replica] = []
 
     def _buffers(self, fmt: str, aud_shape) -> None:
         """The chunk program's static buffers for the chunk size, the
@@ -214,6 +223,10 @@ class _Session:
         self._in_aud, self._host_aud = pair((C, *aud_shape))
         self._out, self._host_out = pair((C, nbytes), torch.uint8)
         self._out_cnt, self._host_cnt = pair((C, len(COUNTERS)), torch.int64)
+        # each frame's audio code after the smooth-lips chain
+        self._enc = torch.zeros((C, 1, self.field.audio_dim), device=dev)
+        for rep in self._replicas:
+            rep.buffers(C // len(self._replicas), nbytes)
         self._fmt = fmt
         self._bufs_key = key
         self._graph = None
@@ -309,40 +322,104 @@ class _Session:
             res["rgb"] = (img * 255).to(torch.uint8).reshape(-1)
         return res
 
-    def _chunk_program(self, frames: int) -> None:
-        """The first `frames` frames of the chunk, static inputs -> static
-        outputs (what a CUDA graph records)."""
+    def _enc_chain(self, frames: int) -> None:
+        """The smooth-lips chain over the chunk's first `frames` audio
+        windows into the audio-code buffer (serial: each frame's code
+        carries the one before)."""
+        for j in range(frames):
+            self._enc[j].copy_(self.encode_audio(self._in_aud[j],
+                                                 self._in_meta[j, 2]))
+
+    def _render_frames(self, frames: int) -> None:
+        """Render the first `frames` frames of the input buffers (pose id,
+        eye; audio code) into the output buffers (frame bytes, counters);
+        a replica runs it over its own buffers."""
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         key = "yuv" if self._fmt == "yuv420p" else "rgb"
         for j in range(frames):
-            enc = self.encode_audio(self._in_aud[j], self._in_meta[j, 2])
-            out = self.render_frame(self._in_meta[j, :1].long(), enc,
+            out = self.render_frame(self._in_meta[j, :1].long(), self._enc[j],
                                     self._in_meta[j, 1:2], fmt=self._fmt)
             self._out[j].copy_(out[key])
             self._out_cnt[j].copy_(torch.stack(
                 [out.get(k, zero) for k in COUNTERS]))
 
+    def _chunk_program(self, frames: int) -> None:
+        """The first `frames` frames of the chunk, static inputs -> static
+        outputs (what a CUDA graph records): the smooth-lips chain, then
+        the renders (each replica's share of whole frames under
+        frame-parallel serving)."""
+        self._enc_chain(frames)
+        if self._replicas:
+            self._fan_out(frames, use_graph=False)
+        else:
+            self._render_frames(frames)
+
+    def _fan_out(self, frames: int, use_graph: bool) -> None:
+        """Frame-parallel serving: replica r renders frames [r * per, (r +
+        1) * per) of the chunk from its copy of the identity (its captured
+        graph when use_graph); inputs and outputs cross devices by copies,
+        ordered by the streams. Each replica counts its launches."""
+        per = self.chunk // len(self._replicas)
+        for r, rep in enumerate(self._replicas):
+            lo = r * per
+            k = min(per, frames - lo)
+            if k <= 0:
+                break
+            rep._in_meta[:k].copy_(self._in_meta[lo:lo + k])
+            rep._enc[:k].copy_(self._enc[lo:lo + k])
+            before = dict(kernels.launches)
+            with _on(rep.device):
+                if use_graph:
+                    rep._graph.replay()
+                    for name, n in rep._graph_launches.items():
+                        kernels.launches[name] += n
+                else:
+                    rep._render_frames(k)
+            for name, n in kernels.launches.items():
+                rep.launches[name] = (rep.launches.get(name, 0) + n
+                                      - before[name])
+            self._out[lo:lo + k].copy_(rep._out[:k])
+            self._out_cnt[lo:lo + k].copy_(rep._out_cnt[:k])
+
     def _capture(self) -> None:
-        """Capture the chunk program as a CUDA graph for the current plan.
-        One eager frame first warms up what initialises lazily (libraries,
-        kernel attributes, cached constants); the carry it advances is put
-        back. Launches recorded in the capture are counted at each
-        replay, not at the capture."""
+        """Capture the chunk program as a CUDA graph for the current plan:
+        the whole program, or under frame-parallel serving the chain on
+        the session's device and each replica's renders on its own. One
+        eager frame first warms up what initialises lazily (libraries,
+        kernel attributes, cached constants) on every device; the carry it
+        advances is put back. Launches recorded in a capture are counted
+        at each replay, not at the capture."""
         saved = self._prev_enc.clone(), self._has_prev.clone()
         self._chunk_program(1)
+        for rep in self._replicas[1:]:
+            with _on(rep.device):
+                rep._render_frames(1)
         self._prev_enc.copy_(saved[0])
         self._has_prev.copy_(saved[1])
-        torch.cuda.synchronize(self.device)
+        for d in {self.device, *(rep.device for rep in self._replicas)}:
+            torch.cuda.synchronize(d)
         self._graph = None
-        before = dict(kernels.launches)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            self._chunk_program(self.chunk)
-        self._graph_launches = {k: kernels.launches[k] - before[k]
-                                for k in before}
-        kernels.launches.update(before)
-        self._graph = g
+        if self._replicas:
+            self._graph, self._graph_launches = _captured(
+                self.device, lambda: self._enc_chain(self.chunk))
+            per = self.chunk // len(self._replicas)
+            for rep in self._replicas:
+                rep._graph, rep._graph_launches = _captured(
+                    rep.device, lambda rep=rep: rep._render_frames(per))
+        else:
+            self._graph, self._graph_launches = _captured(
+                self.device, lambda: self._chunk_program(self.chunk))
         self.captures += 1
+
+    @property
+    def replica_launches(self) -> List[Dict[str, int]]:
+        """Each replica's kernel launches (eager, and its graph's at each
+        replay) since reset_replica_launches; [] when serving serially."""
+        return [dict(rep.launches) for rep in self._replicas]
+
+    def reset_replica_launches(self) -> None:
+        for rep in self._replicas:
+            rep.launches.clear()
 
     # ---- the chunk loop ---------------------------------------------------
 
@@ -353,6 +430,8 @@ class _Session:
             self._graph.replay()
             for k, n in self._graph_launches.items():
                 kernels.launches[k] += n
+            if self._replicas:
+                self._fan_out(self.chunk, use_graph=True)
         else:
             self._chunk_program(self.chunk)
         if self._copy_stream is None:
@@ -551,6 +630,89 @@ class _Session:
             f"long_budget={self.long_budget} eval_budget={self.eval_budget} "
             f"stage2_budget={self.stage2_budget} ({detail}; "
             f"{self.build_seconds:.1f} s)")
+
+
+def _on(device: torch.device):
+    """The device context a replica's work runs under (CUDA only)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else nullcontext()
+
+
+def _captured(device: torch.device, program: Callable):
+    """(CUDA graph of program() on `device`, the kernel launches it
+    recorded); kernels.launches is left as it was."""
+    before = dict(kernels.launches)
+    g = torch.cuda.CUDAGraph()
+    with _on(device), torch.cuda.graph(g):
+        program()
+    recorded = {k: kernels.launches[k] - before[k] for k in before}
+    kernels.launches.update(before)
+    return g, recorded
+
+
+class _Replica:
+    """One device's copy of a session's identity for frame-parallel
+    serving: the head (EMA weights and its bf16 tables), the torso (its
+    table and plan), the occupancy and its tables, poses, background,
+    with its own static buffers and CUDA graph. It renders with the
+    session's render_frame; what it does not hold (the plan: budgets, K2,
+    the bucket, the stage split; the frame's geometry) it reads from the
+    session, so a rebuilt plan reaches every replica."""
+
+    _OWN = ("device", "poses_dev", "aabb", "pose_inv_t", "occ", "field",
+            "ind_code", "packed", "bg", "torso", "torso_packed",
+            "torso_plan", "tables", "launches", "_graph",
+            "_graph_launches", "_in_meta", "_enc", "_out", "_out_cnt")
+
+    def __init__(self, session: "_Session", device: torch.device):
+        import copy
+
+        self.__dict__["_session"] = session
+        self.device = dev = torch.device(device)
+
+        def to(t):
+            return t.to(dev, copy=True) if isinstance(t, torch.Tensor) else t
+
+        self.poses_dev = to(session.poses_dev)
+        self.aabb = to(session.aabb)
+        self.pose_inv_t = to(session.pose_inv_t)
+        self.bg = to(session.bg)
+        self.occ = OccupancyState(*(to(t) for t in session.occ))
+        self.tables = type(session.tables)(*(to(t) for t in session.tables))
+        self.field = copy.deepcopy(session.field).to(dev)
+        self.ind_code = (None if session.ind_code is None
+                         else self.field.individual_codes[0].detach())
+        self.packed = {k: to(v) for k, v in session.packed.items()}
+        self.torso = self.torso_packed = self.torso_plan = None
+        if session.torso is not None:
+            self.torso = copy.deepcopy(session.torso).to(dev)
+            self.torso_packed = to(session.torso_packed)
+            self.torso_plan = type(session.torso_plan)(
+                *(to(t) for t in session.torso_plan))
+        self.launches: Dict[str, int] = {}
+        self._graph = None
+        self._graph_launches: Dict[str, int] = {}
+
+    def buffers(self, frames: int, nbytes: int) -> None:
+        """Static inputs (pose id, eye, valid; audio code) and outputs
+        (frame bytes, counters) for `frames` frames."""
+        dev = self.device
+        self._in_meta = torch.zeros((frames, 3), device=dev)
+        self._enc = torch.zeros((frames, 1, self.field.audio_dim),
+                                device=dev)
+        self._out = torch.zeros((frames, nbytes), dtype=torch.uint8,
+                                device=dev)
+        self._out_cnt = torch.zeros((frames, len(COUNTERS)),
+                                    dtype=torch.int64, device=dev)
+        self._graph = None
+
+    def __getattr__(self, name):
+        if name in self._OWN:
+            raise AttributeError(f"the replica has no {name} yet")
+        return getattr(self.__dict__["_session"], name)
+
+    render_frame = _Session.render_frame
+    _render_frames = _Session._render_frames
 
 
 class ServingSession(_Session):
@@ -782,8 +944,6 @@ def unported_plan(cfg: Config) -> List[str]:
          f"{cfg.infer_march_group} (group 3 and the dilated modes): {q1} 8"),
         (cfg.infer_sample_frac > 0, "infer_sample_frac > 0 (stage-1 sample "
          f"compaction): {q1} 8"),
-        (cfg.infer_data_parallel >= 2, "infer_data_parallel >= 2 "
-         f"(frame-parallel serving, parallel/): {q1} 7"),
         (cfg.infer_march_variant != "nb5w", f"infer_march_variant "
          f"{cfg.infer_march_variant!r}: {q1} 8"),
         (not cfg.infer_march_prepass, "infer_march_prepass off (the block "
@@ -810,10 +970,21 @@ class InferenceSession(_Session):
     the field kernel's wrapper, whatever Config.fused_field says (its
     values name three implementations of one function in the JAX
     package). graph: run each chunk as a CUDA graph (default: on a GPU).
-    Entry points run on "cuda" unless device says otherwise."""
+    Entry points run on "cuda" unless device says otherwise.
+
+    infer_data_parallel N >= 2: frame-parallel serving over n = min(N,
+    devices) devices (parallel.make_mesh: the visible GPUs): the chunk
+    (infer_chunk rounded up to a multiple of n) runs its smooth-lips
+    chain serially, then each device renders chunk / n whole frames from
+    its own copy of the identity, in its own CUDA graph; the frames are
+    byte-equal to the serial program's. With fewer than two devices the
+    session serves serially. `devices` is a test seam, not a user
+    setting: the list the mesh is made of (a device may repeat, so two
+    replicas share one card or the CPU)."""
 
     def __init__(self, cfg: Config, device=None, log=print,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None,
+                 devices: Optional[Sequence] = None):
         # serving overrides of the reference's inference script
         self.cfg = cfg.replace(test=True, test_train=True, smooth_lips=True,
                                smooth_path=True,
@@ -822,6 +993,8 @@ class InferenceSession(_Session):
         self.device = resolve_device(device)
         self.log = log
         self.graph = graph
+        self._mesh_devices = devices
+        self._n_dp = 1
         self._built = False
         self._carry = False   # the smooth-lips EMA carries into run()
         # frames of the live buffer are dropped in strides of this many
@@ -884,6 +1057,8 @@ class InferenceSession(_Session):
         settings = dataclasses.replace(
             settings, max_steps=cfg.infer_samples or cfg.max_steps)
         self.cfg, self.ds = cfg, ds
+        dp_devices = self._dp_devices(cfg)
+        self._n_dp = len(dp_devices)
         self._load(st, self.device, settings, ds.H, ds.W, ds.intrinsics,
                    ds.poses, ds.bg_img, self._chunk_size(), att=cfg.att,
                    log=self.log, variants=())
@@ -924,8 +1099,35 @@ class InferenceSession(_Session):
             self.tables = ensure_variant_tables(
                 self.tables, self.occ.occ, needed_variant_tables(
                     group, variant, prepass=self.use_prepass))
+        if self._n_dp > 1:
+            self._replicas = [_Replica(self, d) for d in dp_devices]
+            self.log(f"[INFO] frame-parallel over {self._n_dp} devices "
+                     f"({', '.join(map(str, dp_devices))}), chunk "
+                     f"{self._chunk_size()}")
         self._build_plan(t0)
         self._built = True
+
+    def _dp_devices(self, cfg: Config) -> list:
+        """The frame-parallel devices: the first min(infer_data_parallel,
+        mesh size) of the mesh (`devices`, or the visible GPUs); [] when
+        that is below 2 (serial serving)."""
+        from ..parallel import make_mesh
+
+        n = cfg.infer_data_parallel
+        if n < 2:
+            return []
+        if self._mesh_devices is not None:
+            devs = list(make_mesh("dp", self._mesh_devices).devices)
+        elif self.device.type == "cuda":
+            devs = list(make_mesh("dp").devices)
+        else:
+            devs = [self.device]
+        devs = devs[:n]
+        if len(devs) < 2:
+            self.log(f"[INFO] infer_data_parallel {n} over "
+                     f"{len(devs)} device: serving serially")
+            return []
+        return devs
 
     def _build_plan(self, t0: float) -> None:
         """The JAX session's _compile_render plan: the ray budget
@@ -1067,10 +1269,12 @@ class InferenceSession(_Session):
         return n - start, dt
 
     def _chunk_size(self) -> int:
-        """The render chunk size (one definition: run() and run_live()
+        """The render chunk size: infer_chunk rounded up to a multiple of
+        the frame-parallel devices (one definition: run() and run_live()
         must agree, or run_live's mid-stream segments leave the chunk
         lattice and lose their byte-equality with run())."""
-        return max(1, self.cfg.infer_chunk)
+        mult = max(1, self._n_dp)
+        return -(-max(1, self.cfg.infer_chunk) // mult) * mult
 
     def run_live(self, feature_stream, sink: Optional[FrameSink] = None,
                  on_frame: Optional[Callable[[int, np.ndarray], None]] = None):

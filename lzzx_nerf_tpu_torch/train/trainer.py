@@ -5,10 +5,12 @@ make_eval_step, make_torso_train_step).
 A head step: random rays of one frame (or, for the lips finetune, the
 fixed lips_pad² crop at the frame's lips rect), the audio code, the field
 through the full-path march (render_rays) or the window-compacted one
-(render_rays_train_compact; never under the lips finetune), the head loss
-stack, LPIPS on the lips crop, the every-16-steps jitter regulariser (off
-under the lips finetune), backward, the optimizer (non-finite steps
-skipped on the device) and the periodic EMA. A torso step: random pixels,
+(render_rays_train_compact, optionally staged; never under the lips
+finetune), the head loss stack, LPIPS on the lips crop or on the patches
+of a patch-sampled step, the every-16-steps jitter regulariser (off under
+the lips finetune), backward, the optimizer (non-finite steps skipped on
+the device) and the periodic EMA; the data-parallel step renders a
+rank's shard of the rays and sums the ranks' gradients. A torso step: random pixels,
 the torso pass over the frame's background (run_torso), the torso loss,
 the optimizer and the EMA; the head is not touched. A step's random draws
 come from an explicit generator on the step's device, or are passed in
@@ -28,11 +30,12 @@ import torch
 from torch import nn
 
 from ..models.nerf import NeRFField, TorsoField
-from ..render.renderer import (render_rays, render_rays_train_compact,
-                               run_torso)
+from ..parallel.mesh import DataSharding
+from ..render.renderer import (effective_train_stage2_budget, render_rays,
+                               render_rays_train_compact, run_torso)
 from ..render.state import OccupancyState, RenderSettings
 from ..utils.pose import camera_refinement
-from ..utils.rays import get_bg_coords, get_rays
+from ..utils.rays import get_bg_coords, get_rays, patch_inds
 from . import lpips as lpips_mod
 from .losses import head_losses, torso_losses
 from .optim import HeadOptimizer, lr_decay_rate
@@ -72,9 +75,14 @@ def _draw(dev, draws: Mapping, gen: Optional[torch.Generator], name: str,
     return make(gen)
 
 
-def _masked_mse(a, b, w):
+def _masked_mse(a, b, w, total=None):
+    """sum((a - b)² w) / max(sum(w), 1); `total` sums a per-rank partial
+    sum over the ranks of a data-parallel step (the global value)."""
     w = w.to(torch.float32)
-    return torch.sum(((a - b) ** 2) * w) / torch.clamp(torch.sum(w), min=1.0)
+    num, den = torch.sum(((a - b) ** 2) * w), torch.sum(w)
+    if total is not None:
+        num, den = total(num), total(den)
+    return num / torch.clamp(den, min=1.0)
 
 
 def jitter_regulariser(field: NeRFField, pts: torch.Tensor,
@@ -83,11 +91,14 @@ def jitter_regulariser(field: NeRFField, pts: torch.Tensor,
                        eye: torch.Tensor, delta: torch.Tensor,
                        packed: Dict[str, torch.Tensor], *,
                        unc_loss: bool = True, amb_aud_loss: bool = True,
-                       amb_eye_loss: bool = True) -> torch.Tensor:
+                       amb_eye_loss: bool = True, total=None
+                       ) -> torch.Tensor:
     """The every-16-steps regulariser: masked MSEs of the uncertainty and
     ambient outputs at the jittered samples pts + delta against their
     detached values at pts, with the audio and individual codes detached
-    (reference TrainerUtil.py:346-365, via the JAX package's step)."""
+    (reference TrainerUtil.py:346-365, via the JAX package's step).
+    total: DataSharding.total of a data-parallel step, whose ranks hold
+    different sample counts (each MSE is the global one)."""
     ea = enc_a.detach()
     cc = c.detach() if c is not None else None
     with torch.no_grad():
@@ -97,17 +108,26 @@ def jitter_regulariser(field: NeRFField, pts: torch.Tensor,
                 compute_uncertainty=unc_loss, packed=packed)
     reg = pts.new_zeros(())
     if unc_loss:
-        reg = reg + _masked_mse(raw.uncertainty, per.uncertainty, mask)
+        reg = reg + _masked_mse(raw.uncertainty, per.uncertainty, mask,
+                                total)
     if amb_aud_loss:
-        reg = reg + _masked_mse(raw.ambient_aud, per.ambient_aud, mask)
+        reg = reg + _masked_mse(raw.ambient_aud, per.ambient_aud, mask,
+                                total)
     if amb_eye_loss:
-        reg = reg + _masked_mse(raw.ambient_eye, per.ambient_eye, mask)
+        reg = reg + _masked_mse(raw.ambient_eye, per.ambient_eye, mask,
+                                total)
     return reg
 
 
 def _f32_ratio(a: int, b: int) -> float:
     """a / b rounded like the JAX package's float32 division."""
     return float(np.float32(a) / np.float32(b))
+
+
+# the per-ray outputs the loss reads, gathered from every rank of a
+# data-parallel step (image takes 3 columns)
+_LOSS_ROWS = ("image", "weights_sum", "ambient_aud", "ambient_eye",
+              "uncertainty")
 
 
 def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
@@ -120,30 +140,44 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                     update_extra_interval: int = 16,
                     lpips_params: Optional[Mapping[str, torch.Tensor]] = None,
                     finetune_lips: bool = False, lips_pad: int = 32,
-                    train_camera: bool = False, data_parallel: bool = False,
-                    train_budget: int = 0, train_stage_split: int = 0):
+                    train_camera: bool = False,
+                    data_sharding: Optional[DataSharding] = None,
+                    train_budget: int = 0, train_stage_split: int = 0,
+                    train_stage2_budget: int = 0):
     """Returns step(state, occ, batch, generator=None, draws=None) ->
     metrics. train_budget > 0 selects the compacted step (not under the
-    lips finetune). finetune_lips: rays on the lips_pad² crop at
-    batch["rect_origin"], no uncertainty terms, no regulariser, and
-    0.01 x LPIPS (lpips_params, on the card's device) of the crop.
+    lips finetune), and 0 < train_stage_split < S its staged composite
+    (train_stage2_budget stage-2 slots, 0 for the renderer's default;
+    metrics n_stage2 and n_stage2_over against the effective budget).
+    patch_size > 1: the rays are N // p² whole p x p patches
+    (utils.rays.patch_inds), and with lpips_params the loss adds 0.1 x the
+    mean LPIPS of the rendered patches against the ground truth.
+    finetune_lips: rays on the lips_pad² crop at batch["rect_origin"], no
+    uncertainty terms, no regulariser, and 0.01 x LPIPS (lpips_params, on
+    the step's device) of the crop.
+
+    data_sharding (parallel.data_sharding over a process group's mesh):
+    the data-parallel step. Every rank draws the same global rays, noise
+    and jitter, renders its contiguous slice of the rays (the compacted
+    step compacts per shard: max(256, budget // n) slots, max(1024,
+    stage2 // n) stage-2 slots, the overflow weights per shard), gathers
+    every rank's per-ray outputs, and computes the loss of the whole batch
+    (the regulariser's sums over its samples are summed over the ranks);
+    the gradients are summed over the ranks before the optimizer, which,
+    like the EMA, runs replicated. n_active and n_stage2 are summed over
+    the ranks, n_active_over and n_stage2_over are the worst shard's
+    excess over its slots. num_rays must divide by the ranks.
 
     batch: image [H, W, 3], bg_color [H, W, 3], face_mask [H, W] bool,
     pose [4, 4], auds [8, 16, C], eye [1], index (int), and for the lips
     finetune rect_origin [2] int (row, col), on the step's device. draws:
     tensors that replace the generator's draws (any subset; the rest come
     from the generator), uniform in [0, 1) unless said otherwise: "inds"
-    [N] int pixel indices in [0, H*W) (not drawn under the lips finetune);
-    "noise" [N], the march lattice jitter; "eye_jitter" (eye's shape), the
-    blink jitter (u - 0.5) / 10; "reg_delta" [M, 3] over the step's M
-    samples, the regulariser's jitter (u * 2 - 1) * 1e-3."""
-    later = {"patch_size > 1": (patch_size > 1, 5),
-             "data_parallel": (data_parallel, 7),
-             "train_stage_split": (train_stage_split > 0, 5)}
-    for what, (on, item) in later.items():
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+    [N] int pixel indices in [0, H*W) (not drawn under the lips finetune;
+    patch_inds' layout under patch_size > 1); "noise" [N], the march
+    lattice jitter; "eye_jitter" (eye's shape), the blink jitter (u - 0.5)
+    / 10; "reg_delta" [M, 3] over the step's M samples (of every rank),
+    the regulariser's jitter (u * 2 - 1) * 1e-3."""
     if train_camera and not hasattr(field, "camera_dR"):
         raise ValueError("train_camera needs a field built with "
                          "camera_frames > 0")
@@ -152,8 +186,26 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
     S = settings.max_steps
     use_compact = train_budget > 0 and not finetune_lips
     use_lpips = finetune_lips and lpips_params is not None
+    # the patch term belongs to the patch-sampled steps, not to the lips
+    # crop
+    patch_lpips = (patch_size > 1 and lpips_params is not None
+                   and not finetune_lips)
     lips_ar = torch.arange(lips_pad, device=dev)
     decay_rate = np.float32(lr_decay_rate(finetune_lips))
+    sh = data_sharding
+    n_sh = 1 if sh is None else sh.size
+    if sh is not None:
+        # the step's global ray count must split evenly over the ranks
+        p2 = patch_size * patch_size
+        sh.n_local(lips_pad * lips_pad if finetune_lips
+                   else min(num_rays, H * W) // p2 * p2)
+    budget, budget2 = train_budget, train_stage2_budget
+    if sh is not None and use_compact:
+        # per-shard slots (the JAX package's b_local, b2_local)
+        budget = max(256, train_budget // n_sh)
+        budget2 = (max(1024, train_stage2_budget // n_sh)
+                   if train_stage2_budget else 0)
+    cap2 = effective_train_stage2_budget(budget, budget2)
 
     def step_fn(state: TrainState, occ: OccupancyState, batch: Mapping,
                 generator: Optional[torch.Generator] = None,
@@ -166,6 +218,10 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
             o = batch["rect_origin"].to(dev)
             inds = ((o[0] + lips_ar)[:, None] * W
                     + (o[1] + lips_ar)[None, :]).reshape(-1)
+        elif patch_size > 1:
+            inds = _draw(dev, draws, generator, "inds",
+                         lambda g: patch_inds(H, W, num_rays, patch_size, g,
+                                              dev))
         else:
             inds = _draw(dev, draws, generator, "inds",
                          lambda g: torch.randint(
@@ -185,6 +241,10 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         N = gt.shape[0]
         noise = _draw(dev, draws, generator, "noise",
                       lambda g: torch.rand((N,), generator=g, device=dev))
+        if sh is not None:
+            # this rank's contiguous slice of the global rays
+            rays_o, rays_d, bg, noise = (sh.slice(x) for x in (
+                rays_o, rays_d, bg, noise))
 
         state.opt.zero_grad()
         enc_a = field.encode_audio_train(batch["auds"])
@@ -202,17 +262,35 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         ray_weight = None
         if use_compact:
             res = render_rays_train_compact(
-                field_fn, settings, occ, rays_o, rays_d, bg, train_budget,
-                noise=noise, aabb=aabb)
+                field_fn, settings, occ, rays_o, rays_d, bg, budget,
+                noise=noise, stage_split=train_stage_split,
+                stage2_budget=budget2, aabb=aabb)
             ray_weight = res["ray_weight"]
         else:
             res = render_rays(field_fn, settings, occ, rays_o, rays_d, bg,
                               noise=noise, training=True, aabb=aabb)
+        if sh is not None:
+            # every rank's per-ray outputs, in ray order
+            cols = torch.cat([res["image"]] + [
+                res[k][:, None] for k in _LOSS_ROWS[1:]]
+                + ([ray_weight[:, None]] if ray_weight is not None
+                   else []), dim=-1)
+            full = sh.gather_rows(cols)
+            res = {**res, "image": full[:, :3],
+                   **{k: full[:, 3 + i] for i, k in
+                      enumerate(_LOSS_ROWS[1:])}}
+            if ray_weight is not None:
+                ray_weight = full[:, 3 + len(_LOSS_ROWS) - 1]
         loss = head_losses(res, res["image"], gt, face, step_factor,
                            unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
                            amb_eye_loss=amb_eye_loss, lambda_amb=lambda_amb,
                            max_steps=S, finetune_lips_active=finetune_lips,
                            ray_weight=ray_weight)
+        if patch_lpips:
+            shape = (-1, patch_size, patch_size, 3)
+            loss = loss + 0.1 * torch.mean(lpips_mod.lpips(
+                lpips_params, res["image"].reshape(shape) * 2 - 1,
+                gt.reshape(shape) * 2 - 1))
         if use_lpips:
             shape = (1, lips_pad, lips_pad, 3)
             loss = loss + 0.01 * torch.mean(lpips_mod.lpips(
@@ -221,16 +299,22 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
 
         if not finetune_lips and step % update_extra_interval == 0:
             pts, d_s, mask = res["rays"]
+            M = pts.shape[0]
             u = _draw(dev, draws, generator, "reg_delta",
-                      lambda g: torch.rand(pts.shape, generator=g,
+                      lambda g: torch.rand((M * n_sh, 3), generator=g,
                                            device=dev))
+            if sh is not None:
+                u = sh.slice(u)
             reg = jitter_regulariser(
                 field, pts, d_s, mask, enc_a, c, eye, (u * 2 - 1) * 1e-3,
                 tables, unc_loss=unc_loss, amb_aud_loss=amb_aud_loss,
-                amb_eye_loss=amb_eye_loss)
+                amb_eye_loss=amb_eye_loss,
+                total=None if sh is None else sh.total)
             loss = loss + step_factor * 1e-5 * reg
 
         loss.backward()
+        if sh is not None:
+            sh.all_reduce_grads(field.parameters())
         state.opt.step()
         state.step = new_step = step + 1
         if new_step % ema_interval == 0:
@@ -247,9 +331,13 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                     _f32_ratio(new_step, iters))),
                 "grad_notfinite": state.opt.total_notfinite,
             }
-            if ray_weight is not None:
-                metrics["n_active"] = res["n_active"]
-                metrics["n_active_over"] = res["n_active"] - train_budget
+            for k, cap in (("n_active", budget), ("n_stage2", cap2)):
+                if k not in res:
+                    continue
+                # overflow is a per-shard event: the worst shard's excess
+                per = res[k] if sh is None else sh.counts(res[k])
+                metrics[k] = per.sum()
+                metrics[k + "_over"] = per.max() - cap
         return metrics
 
     return step_fn

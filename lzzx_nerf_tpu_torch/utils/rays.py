@@ -21,6 +21,26 @@ def get_bg_coords(H: int, W: int, device=None) -> torch.Tensor:
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)[None]
 
 
+def patch_inds(H: int, W: int, N: int, patch_size: int,
+               generator: torch.Generator, device=None) -> torch.Tensor:
+    """The pixels of a patch-sampled step (the JAX package's get_rays with
+    patch_size > 1): N // p² patches of p x p pixels, their row origins
+    drawn in [0, H - p) and then their column origins in [0, W - p) (upper
+    bounds exclusive, as in the reference), the offsets row-major, so ray
+    k·p² + a·p + b is pixel (x_k + a, y_k + b). -> [N // p² · p²] flat
+    row-major indices."""
+    p = patch_size
+    num_patch = min(N, H * W) // (p * p)
+    xs = torch.randint(0, H - p, (num_patch,), generator=generator,
+                       device=device)
+    ys = torch.randint(0, W - p, (num_patch,), generator=generator,
+                       device=device)
+    a = torch.arange(p, device=xs.device)
+    rows = xs[:, None, None] + a[None, :, None]
+    cols = ys[:, None, None] + a[None, None, :]
+    return (rows * W + cols).reshape(-1)
+
+
 def get_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
              inds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Rays of each pose through the pixels `inds` (flat row-major

@@ -322,14 +322,17 @@ def blob_hash(blob, tmp_path_factory):
     (dict(infer_stage_split=0), "blocks", 2),
     (dict(train_camera=True), "blocks", 2),
     (dict(encoder="hash"), "blocks", 2),
+    (dict(infer_data_parallel=2), "blocks", 2),
 ])
 def test_ported_plans_serve(blob, blob_hash, kw, path, group):
     """The plans a session refused before their paths were ported:
     cascade 2 (render_rays), per-ray windows (render_rays_compact), the
     group-1 march, the single-pass composite, train_camera (a state
     without camera parameters serves unrefined, as in the JAX session),
-    and the hash head (a state holding the hash tables; its parity with
-    the JAX session is tests/test_torch_hash.py)."""
+    the hash head (a state holding the hash tables; its parity with the
+    JAX session is tests/test_torch_hash.py), and infer_data_parallel 2
+    on one device (serial; the frame-parallel program is
+    tests/test_torch_parallel_serving.py)."""
     data, ws = blob
     if kw.get("encoder") == "hash":
         ws = blob_hash
@@ -345,7 +348,6 @@ def test_ported_plans_serve(blob, blob_hash, kw, path, group):
 @pytest.mark.parametrize("kw,item", [
     (dict(infer_march_group=3), "item 8"),
     (dict(infer_sample_frac=0.5), "item 8"),
-    (dict(infer_data_parallel=2), "item 7"),
     (dict(infer_march_variant="quadw"), "item 8"),
     (dict(infer_march_prepass=False), "item 8"),
     (dict(infer_table_bf16=False), "item 8"),

@@ -415,11 +415,3 @@ def test_eval_step_with_ema_weights(world):
     assert not torch.equal(with_ema, ev(st, w["tocc"], b)["image"])
     tf.load_state_dict(st.ema)
     assert torch.equal(with_ema, ev(st, w["tocc"], b)["image"])
-
-
-def test_step_refuses_unported_options(world):
-    w = world
-    for kw in ({"patch_size": 4}, {"data_parallel": True},
-               {"train_stage_split": 4}):
-        with pytest.raises(NotImplementedError):
-            _port(w, 0, **kw)
