@@ -131,6 +131,26 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      plain versions (FRAME_TOL), the captured run's launch counts (set to
      0 just before, read just after: the field kernel on every path, the
      select only on the group-2 block paths) and frames/s;
+ 18b. alternates (after [fallback]): the Config alternates of the JAX
+     session (ALT_PATHS), each one override over the Config's defaults
+     on the trained state's 512² identity: the nine block-march variants
+     (wslice, nb_first, zband, zband4, nb5wz, nb5wz4, quad, quadw,
+     quadwx), infer_march_group 3 and -2, infer_march_prepass 0,
+     infer_table_bf16 0 (float32 tables: the enc_x entry),
+     infer_sample_frac ALT_SAMPLE_FRAC (its first plan overflows, so the
+     sample escape fires), and seeded exp_eye 0 and emb states at the
+     trained state's widths and occupancy; the nb5w path first, then
+     nb5w without the bucket split. For each: the plan settles and the
+     plan it resolved to (a step-down included), one eager chunk with
+     every kernel launch held to its plain version, frame 0 through the
+     kernels against the plain versions (FRAME_TOL), the captured run's
+     launch counts (set to 0 just before, read just after: the right
+     field entry on every path, the select on every group-2 block path,
+     each variant marching through it) and frames/s beside nb5w's; the
+     frames of ALT_EQUAL_NB5W byte-equal to nb5w's (the nine variants
+     over ALT_VARIANT_FRAMES frames, a depth cut), prepass 0's to the
+     unbucketed nb5w path's (the bytes that differ from the bucketed one
+     printed), those of the quadrant variants byte-equal to each other;
  19. cli: the synthetic oracle as a 512² disk dataset
      (tools/dataset.py); `python -m lzzx_nerf_tpu_torch.cli` trains the
      head at the Config's width (grid 128, S 16, 65,536 rays; CLI_HEAD
@@ -160,8 +180,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      to the main path's in the kernels line;
  23. preprocess: the stand-in identity of tools/synthetic_face.py (BFM
      widths, 100 frames at 512², .lms, a TorchScript parser); tasks 4, 5,
-     6, 8, 9 as `python -m lzzx_nerf_tpu_torch.preprocess.process`
-     processes on the card (task 8 uncut: the reference's nine focals),
+     6, 9 as `python -m lzzx_nerf_tpu_torch.preprocess.process`
+     processes on the card, task 8 through the same entry in-process with
+     its focal search cut to three of the reference's nine focals,
      tasks 1 and 3 when ffmpeg is on the PATH, task 2 through a stand-in
      HuBERT; the tracker's stage seconds, steps/s and peak memory, its
      recovery of the ground truth at tests/test_face_tracking.py's
@@ -181,9 +202,10 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      held to its plain version, the captured run byte-equal to [live]'s,
      launch counts set to 0 just before and read just after per replica
      (both kernels must launch on each), frames/s beside [live]'s.
-Then a "kernels" JSON line (launches: [slice], [asr]'s default run and
-[parallel]'s captured frame-parallel run), the nvidia-smi line, and last
-the device JSON line.
+Then a "kernels" JSON line (launches: [slice], [asr]'s default run,
+[parallel]'s captured frame-parallel run and [alternates]' captured
+runs; the enc_x entry's from [reference] and [alternates]), the
+nvidia-smi line, and last the device JSON line.
 """
 
 from __future__ import annotations
@@ -1438,6 +1460,231 @@ def fallback_phase(dev, root: str, smi: str, res=None, n_poses=None,
     return ok, lines
 
 
+# [alternates]: the Config alternates of the JAX session, each one
+# override over the Config's defaults on the trained state's 512²
+# identity (a seeded eye-less or label-audio state where the override
+# needs one); the paths whose frames must be byte-equal to the nb5w
+# path's once the plan settles (the variants march through nb5w's select,
+# so they run ALT_VARIANT_FRAMES frames, a depth cut), and the quadrant
+# family, byte-equal among itself; prepass 0 byte-equal to the nb5w path
+# without the bucket split (tests/test_torch_alternates.py holds it
+# byte-equal to the bucketed path too, on the JAX package's own fixture;
+# here the bytes that differ from the bucketed path are printed, as a
+# diagnostic: the bucket's whole-group window tightening re-anchors each
+# ray's lattice start, which can move a sample depth by a float32 ulp).
+# infer_sample_frac 0.05 gives a first plan whose sample budget the
+# frames overflow, so its escape fires.
+ALT_VARIANTS = ("wslice", "nb_first", "zband", "zband4", "nb5wz", "nb5wz4",
+                "quad", "quadw", "quadwx")
+ALT_VARIANT_FRAMES = 8
+ALT_SAMPLE_FRAC = 0.05
+ALT_PATHS = (
+    ("nb5w", {}, "identity"),
+    ("bucket 0", {"infer_march_bucket": False}, "identity"),
+    *((v, {"infer_march_variant": v}, "identity") for v in ALT_VARIANTS),
+    ("group 3", {"infer_march_group": 3}, "identity"),
+    ("group -2", {"infer_march_group": -2}, "identity"),
+    ("prepass 0", {"infer_march_prepass": False}, "identity"),
+    ("table_bf16 0", {"infer_table_bf16": False}, "identity"),
+    ("sample_frac", {"infer_sample_frac": ALT_SAMPLE_FRAC}, "identity"),
+    ("exp_eye 0", {"exp_eye": False}, "eyeless"),
+    ("emb", {"emb": True}, "emb"),
+)
+ALT_EQUAL_NB5W = ALT_VARIANTS + ("sample_frac",)
+ALT_QUAD = ("quad", "quadw", "quadwx")
+ALT_FRAMES = 32
+ALT_SEED = 14
+
+
+def _seeded_state(src: str, dst: str, seed: int, **field_kw) -> None:
+    """A production_state.pkl at `dst`: the state at `src` (its torso,
+    occupancy and meta) with a seeded head at the same widths, built
+    NeRFField(**field_kw) (exp_eye False: no eye branch; emb: a label
+    embedding over the audio width)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch.models import NeRFField
+    from lzzx_nerf_tpu_torch.serving.state_io import (TORSO_LEAF_PATHS,
+                                                      flatten_paths,
+                                                      load_trained_state,
+                                                      params_to_jax)
+
+    st = load_trained_state(src)
+    meta = st["meta"]
+    codes = st["head"]["individual_codes"]
+    field = NeRFField(audio_in_dim=int(meta["audio_dim"]),
+                      ind_dim=int(np.shape(codes)[1]),
+                      ind_num=int(np.shape(codes)[0]), **field_kw)
+    field.init_params(torch.Generator().manual_seed(seed))
+    tflat = flatten_paths(st["torso"])
+    with open(dst, "wb") as f:
+        pickle.dump({"head_ema": params_to_jax(field.state_dict()),
+                     "torso_leaves": [tflat[p] for p in TORSO_LEAF_PATHS],
+                     "occ": st["occ"], "meta": meta}, f)
+
+
+def alternates_phase(dev, root: str, smi: str, res=None, n_poses=None,
+                     frames: int = ALT_FRAMES) -> tuple:
+    """[alternates]: each path of ALT_PATHS served by an InferenceSession
+    over the trained state's identity (or its seeded eye-less / label
+    state): the plan settles (the one it resolved to reported, a
+    step-down included), one eager chunk with every kernel launch held to
+    its plain version, frame 0 through the kernels against the plain
+    versions (FRAME_TOL), the captured run's launch counts (set to 0 just
+    before, read just after: the field kernel's triplane entry on every
+    bf16-table path, its enc_x entry with float32 tables, the select on
+    every group-2 block path) and frames/s beside nb5w's; the
+    byte-equalities of ALT_EQUAL_NB5W (over the frames each path ran)
+    and ALT_QUAD -> (ok, report lines, the captured runs' summed
+    launches)."""
+    import numpy as np
+    import torch
+
+    from lzzx_nerf_tpu_torch import kernels
+    from lzzx_nerf_tpu_torch.config import Config
+    from lzzx_nerf_tpu_torch.serving import InferenceSession
+    from lzzx_nerf_tpu_torch.serving.streaming import NullSink
+    from lzzx_nerf_tpu_torch.tools.identity import write_identity
+
+    lines = []
+    idents = {"identity": write_identity(root, model="alt", res=res,
+                                         n_poses=n_poses, seed=0)}
+    base_state = os.path.join(idents["identity"]["workspace"],
+                              "production_state.pkl")
+    for name, kw in (("eyeless", dict(exp_eye=False)),
+                     ("emb", dict(emb=True))):
+        ws = os.path.join(root, f"trial_alt_{name}")
+        os.makedirs(ws, exist_ok=True)
+        _seeded_state(base_state, os.path.join(ws, "production_state.pkl"),
+                      ALT_SEED, **kw)
+        idents[name] = dict(idents["identity"], workspace=ws)
+    feats = np.random.default_rng(11).standard_normal(
+        (frames, 16, 29)).astype(np.float32)
+    labels = feats.argmax(-1).astype(np.float32)
+    ok = True
+    fps, outs = {}, {}
+    total = {k: 0 for k in kernels.launches}
+    for name, kw, which in ALT_PATHS:
+        t0 = time.perf_counter()
+        ident = idents[which]
+        f_in = labels if kw.get("emb") else feats
+        if name in ALT_VARIANTS:
+            f_in = f_in[:ALT_VARIANT_FRAMES]
+        plan_lines = []
+        cfg = Config(asr_model="deepspeech", bg_img=ident["bg_img"], **kw)
+        sess = InferenceSession(cfg, device=dev, log=plan_lines.append)
+        sess.load_model(ident["data"], ident["workspace"])
+        settled = False
+        for _ in range(4):
+            r0 = sess.rebuilds
+            sess.set_audio_features(f_in)
+            sess.run(NullSink())
+            if sess.rebuilds == r0 and not sess.rebuild_pending():
+                settled = True
+                break
+        group, variant, prepass = sess.march_plan
+        select_path = sess.path == "blocks" and group == 2
+        f32 = not cfg.infer_table_bf16
+        field_checks, select_checks = [], []
+        sess.graph = False
+        with kernels_held(field_checks, select_checks):
+            sess.set_audio_features(f_in[:sess.chunk])
+            sess.run(_YuvNull())
+        sess.graph = None
+        f_ok = bool(field_checks) and all(e["ok"] for _, e in field_checks)
+        s_ok = all(e for _, e, _ in select_checks) and (
+            bool(select_checks) == select_path)
+        with torch.no_grad():
+            sess.set_audio_features(f_in)
+            enc = sess.field.encode_audio(torch.as_tensor(
+                sess.ds.audio_window(0), device=dev))
+            eye = torch.tensor([float(sess.ds.eye_area[0])
+                                if cfg.exp_eye else 0.0], device=dev)
+            img_k = sess.render_frame(0, enc, eye, fmt="rgb24")["image"]
+            img_p = sess.render_frame(0, enc, eye, use_kernels=False,
+                                      fmt="rgb24")["image"]
+        d_frame = float((img_k - img_p).abs().max())
+        fin = bool(torch.isfinite(img_k).all())
+        sess.set_audio_features(f_in)
+        sess.run(_YuvNull())                     # capture, warm up
+        sess.set_audio_features(f_in)
+        kernels.reset_launches()
+        out = _YuvNull()
+        n, dt = sess.run(out)
+        torch_sync(dev)
+        launches = dict(kernels.launches)
+        entry = "fused_field_enc" if f32 else "fused_field"
+        other = "fused_field" if f32 else "fused_field_enc"
+        launched = (launches[entry] > 0 and launches[other] == 0 and (
+            (launches["march_select"] > 0) == select_path))
+        for k, v in launches.items():
+            total[k] += v
+        fps[name] = n / dt
+        outs[name] = out.frames
+        p_ok = (f_ok and s_ok and fin and d_frame <= FRAME_TOL and launched
+                and settled and n == len(f_in) and len(out.frames) == n)
+        ok &= p_ok
+
+        def max_share(key):
+            return max((e[key] for _, e in field_checks), default=0)
+
+        lines.append(
+            f"[alternates] {name}: {sess.H}x{sess.W} {sess.path} path, "
+            f"resolved plan (group, variant, prepass) {sess.march_plan}; "
+            f"K2={sess.k2} budget={sess.budget} eval={sess.eval_budget} "
+            f"stage2={sess.stage2_budget} sample={sess.sample_budget} "
+            f"after {sess.rebuilds} rebuild(s), settled {settled}; eager "
+            f"chunk: {entry} within FIELD_TOL at "
+            f"{sum(e['ok'] for _, e in field_checks)} of {len(field_checks)}"
+            f" launches (max share of tol colour "
+            f"{max_share('color_share'):.3f}, sigma "
+            f"{max_share('sigma_share'):.3f}), select equal at "
+            f"{sum(e for _, e, _ in select_checks)} of "
+            f"{len(select_checks)}; frame 0 kernels vs plain max abs "
+            f"{d_frame:.3g} (tol {FRAME_TOL}); captured run {n} frames: "
+            f"{fps[name]:.2f} frames/s, launches {launches} [{smi}] "
+            f"{'OK' if p_ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+        lines += [f"[alternates]   {m}" for m in plan_lines
+                  if "[INFO]" in m or "[WARN]" in m]
+        del sess
+        torch.cuda.empty_cache()
+    base = outs["nb5w"]
+    for name in ALT_EQUAL_NB5W:
+        eq = outs[name] == base[:len(outs[name])]
+        ok &= eq
+        lines.append(f"[alternates] {name} frames byte-equal to nb5w's: "
+                     f"{eq} {'OK' if eq else 'FAIL'}")
+    p_eq = outs["prepass 0"] == outs["bucket 0"]
+    ok &= p_eq
+
+    def byte_diff(a, b):
+        d = [np.abs(np.frombuffer(x, np.uint8).astype(int)
+                    - np.frombuffer(y, np.uint8).astype(int))
+             for x, y in zip(a, b)]
+        return sum(int((x > 0).sum()) for x in d), max(int(x.max())
+                                                        for x in d)
+
+    nd, mx = byte_diff(outs["prepass 0"], base)
+    lines.append(f"[alternates] prepass 0 frames byte-equal to the nb5w "
+                 f"path's without the bucket split: {p_eq} "
+                 f"{'OK' if p_eq else 'FAIL'}; diagnostic, against the "
+                 f"bucketed nb5w path: {nd} of {len(base) * len(base[0])} "
+                 f"bytes differ, by at most {mx} level(s)")
+    q_eq = all(outs[q] == outs[ALT_QUAD[0]] for q in ALT_QUAD)
+    ok &= q_eq
+    lines.append(f"[alternates] quad, quadw, quadwx frames byte-equal to "
+                 f"each other: {q_eq} {'OK' if q_eq else 'FAIL'}")
+    b = fps["nb5w"]
+    lines.append("[alternates] frames/s against the nb5w path "
+                 f"({b:.2f}): " + ", ".join(
+                     f"{k} {v:.2f} ({v / b:.3f})" for k, v in fps.items()
+                     if k != "nb5w") + f" [{smi}]")
+    return ok, lines, total
+
+
 # [reference]: the reference-layout checkpoint's seed and identity count
 # (the reference's default ind_num), the CLI steps that train it further
 # and the --test frames
@@ -2020,12 +2267,14 @@ MESH_CHUNK = 65536
 # model (a name with "deepspeech" selects 29 logits)
 ASR_SECONDS = 5.0
 ASR_MODEL_ID = "standin/deepspeech-ctc"
-# [preprocess]: frames of the stand-in clip at 512²; the tracker's steps
-# per stage: the focal search over the reference's nine focals
-# (600..1400) x (2,000 + 2,500), 1,500 + 2,000, 300, 1,000
+# [preprocess]: frames of the stand-in clip at 512²; the focal search's
+# grid, cut in depth to three of the reference's nine focals (600..1400),
+# around the stand-in's true 1100; the tracker's steps per stage: the
+# focal search's focals x (2,000 + 2,500), 1,500 + 2,000, 300, 1,000
 PRE_FRAMES = 100
-TRACK_STEPS = {"focal": 9 * (2000 + 2500), "coarse": 3500, "light": 300,
-               "fine": 1000}
+TRACK_FOCALS = (1000, 1100, 1200)
+TRACK_STEPS = {"focal": len(TRACK_FOCALS) * (2000 + 2500), "coarse": 3500,
+               "light": 300, "fine": 1000}
 # tests/test_face_tracking.py's recovery thresholds
 TRACK_LMS_PX, TRACK_TRANS = 2.0, 0.35
 
@@ -2458,14 +2707,44 @@ def _process(args: list, env: dict) -> tuple:
     return r.returncode, time.perf_counter() - t0, r.stdout + r.stderr
 
 
+def _track_cut(video: str, env: dict, device_flag: tuple) -> tuple:
+    """Task 8 through process.run_pipeline in this process, its focal
+    search over TRACK_FOCALS (a depth cut: fit_focal's grid bound for the
+    call) -> (rc, seconds, output)."""
+    import functools
+    import traceback
+
+    from lzzx_nerf_tpu_torch.preprocess import face_tracking as ft
+    from lzzx_nerf_tpu_torch.preprocess import process
+
+    t0 = time.perf_counter()
+    out, rc = [], 0
+    fit_focal, old_env = ft.fit_focal, dict(os.environ)
+    ft.fit_focal = functools.partial(fit_focal, focal_range=TRACK_FOCALS)
+    os.environ.update(env)
+    try:
+        process.run_pipeline(video, 8, device="cpu" if device_flag else None,
+                             log=out.append)
+    except Exception:
+        rc = 1
+        out += traceback.format_exc().splitlines()
+    finally:
+        ft.fit_focal = fit_focal
+        os.environ.clear()
+        os.environ.update(old_env)
+    return rc, time.perf_counter() - t0, "\n".join(out)
+
+
 def preprocess_phase(dev, root: str, smi: str, frames: int = PRE_FRAMES,
                      res: int = 512, device_flag: tuple = ()) -> tuple:
     """[preprocess]: the stand-in identity of tools/synthetic_face.py (BFM
     widths: 34,650 vertices, id 100, exp 79, tex 100; `frames` frames at
-    `res`², their .lms, a TorchScript parser); tasks 4, 5, 6, 8 and 9 as
+    `res`², their .lms, a TorchScript parser); tasks 4, 5, 6 and 9 as
     `python -m lzzx_nerf_tpu_torch.preprocess.process` processes on the
-    card, tasks 1 and 3 on a clip made from the frames when ffmpeg is on
-    the PATH, task 2 in this process through a stand-in HuBERT; the
+    card, task 8 through the same entry (process.run_pipeline) in this
+    process with the focal search cut to TRACK_FOCALS, tasks 1 and 3 on a
+    clip made from the frames when ffmpeg is on the PATH, task 2 in this
+    process through a stand-in HuBERT; the
     tracker's stage seconds, steps/s and peak memory, its recovery of the
     ground truth, and the written dataset loaded by the port's provider ->
     (ok, report lines). device_flag: ("--device", "cpu") to rehearse."""
@@ -2537,16 +2816,20 @@ def preprocess_phase(dev, root: str, smi: str, frames: int = PRE_FRAMES,
     fa = importlib.util.find_spec("face_alignment") is not None
     stage_s = {}
     for task in (4, 5, 6, 8, 9):
-        rc, sec, out = _process([video, "--task", str(task),
-                                 *device_flag], env)
+        if task == 8:
+            rc, sec, out = _track_cut(video, env, device_flag)
+        else:
+            rc, sec, out = _process([video, "--task", str(task),
+                                     *device_flag], env)
         t_ok = rc == 0
         ok &= t_ok
         done = re.findall(r"\[task \d\] done in .*", out)
         if task == 8:
             for name, s in re.findall(r"\[task 8\] (\w+): ([0-9.]+) s", out):
                 stage_s[name] = float(s)
-        lines.append(f"[preprocess] task {task}: rc {rc}, {sec:.1f} s with "
-                     f"process start; {done} {'OK' if t_ok else 'FAIL'}")
+        how = "in this process" if task == 8 else "with process start"
+        lines.append(f"[preprocess] task {task}: rc {rc}, {sec:.1f} s {how}"
+                     f"; {done} {'OK' if t_ok else 'FAIL'}")
         if not t_ok:
             lines += [f"[preprocess]   {ln}" for ln in out.splitlines()[-12:]]
     lines.append(
@@ -2557,8 +2840,9 @@ def preprocess_phase(dev, root: str, smi: str, frames: int = PRE_FRAMES,
              if v > 0}
     lines.append(
         f"[preprocess] tracker stages (s): {stage_s}; steps/s {rates} "
-        f"(steps per stage {TRACK_STEPS}; the reference's nine focals, "
-        f"iterations and frames not cut) [{smi}]")
+        f"(steps per stage {TRACK_STEPS}; the focals {TRACK_FOCALS}, three "
+        f"of the reference's nine; its iterations and frames not cut) "
+        f"[{smi}]")
 
     # the tracker against the ground truth
     gt = got["gt"]
@@ -3685,8 +3969,22 @@ def main() -> int:
         ok &= r_ok
         log(f"[reference] {'OK' if r_ok else 'FAIL'} "
             f"({time.perf_counter() - t0:.1f} s)")
-        for name, fn in (("fallback", fallback_phase), ("cli", cli_phase),
-                         ("mesh", mesh_phase)):
+        t0 = time.perf_counter()
+        f_ok, lines = fallback_phase(dev, root, smi)
+        for line in lines:
+            log(line)
+        ok &= f_ok
+        log(f"[fallback] {'OK' if f_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # the Config alternates of the JAX session, each beside nb5w
+        t0 = time.perf_counter()
+        a_ok, lines, alt_launches = alternates_phase(dev, root, smi)
+        for line in lines:
+            log(line)
+        ok &= a_ok
+        log(f"[alternates] {'OK' if a_ok else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for name, fn in (("cli", cli_phase), ("mesh", mesh_phase)):
             t0 = time.perf_counter()
             p_ok, lines = fn(dev, root, smi)
             for line in lines:
@@ -3735,19 +4033,24 @@ def main() -> int:
          "replaces": "lzzx_nerf_tpu/ops/fused_field.py:167",
          "launches": (launches["fused_field"]
                       + asr_launches["fused_field"]
-                      + par_launches["fused_field"]),
+                      + par_launches["fused_field"]
+                      + alt_launches["fused_field"]),
          "max_abs_err": max(e["err"] for _, e in field_checks),
          "ms": total(field_rows, "ms"),
          "plain_ms": total(field_rows, "plain_ms"),
          "bound_ms": total(field_rows, "bound_tc"),
          "bound_by": field_rows[0]["by"], "library_ms": None},
-        enc_row,
+        # the enc_x entry's launches: [reference]'s captured run and
+        # [alternates]' float32-table path
+        dict(enc_row, launches=enc_row["launches"]
+             + alt_launches["fused_field_enc"]),
         {"name": "march_select", "route": "cuda",
          "source": "lzzx_nerf_tpu_torch/csrc/march_select.cu",
          "replaces": "lzzx_nerf_tpu/ops/march_select_pallas.py:56",
          "launches": (launches["march_select"]
                       + asr_launches["march_select"]
-                      + par_launches["march_select"]),
+                      + par_launches["march_select"]
+                      + alt_launches["march_select"]),
          "max_abs_err": max(r["err"] for r in sel_rows),
          "ms": total(sel_rows, "ms"), "plain_ms": total(sel_rows, "plain_ms"),
          "bound_ms": total(sel_rows, "bound"),

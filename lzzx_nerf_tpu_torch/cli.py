@@ -37,10 +37,15 @@ samples whole patches and adds 0.1 x their LPIPS (the weights' provenance
 is gated as for --finetune_lips); --train_stage_split N runs the compacted
 step through the staged composite.
 
-What the port does not have yet is refused with the ROADMAP item that
-ports it (Queue 1 item 8): --emb, --exp_eye 0, and the serving alternates
-(the march variants and groups, --infer_march_prepass 0,
---infer_table_bf16 0, --infer_sample_frac).
+--emb trains on label audio features (an embedding in front of the audio
+net) and --exp_eye 0 a field without the eye branch, as in JAX. --test
+takes the JAX CLI's serving alternates: --infer_march_group (1, 2, 3 or
+a negative dilated group) with its envelope step-downs,
+--infer_march_variant (every block-march variant, each marched through
+nb5w's select kernel: they keep its samples), --infer_march_prepass 0 and
+--infer_table_bf16 0 (float32 tables: the lookup in plain PyTorch, then
+the field kernel's enc_x entry). --infer_sample_frac is a serving option
+that --test ignores, as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -58,9 +63,6 @@ import torch
 
 from .config import Config
 from .train.trainer import to_device
-
-Q1 = "ROADMAP Queue 1 item"
-
 
 def parse_args(argv=None):
     """argv -> (Config, device): the JAX CLI's flags (--cuda_ray accepted
@@ -143,36 +145,6 @@ def build_config(argv=None) -> Config:
     return parse_args(argv)[0]
 
 
-def unported(cfg: Config, test: bool = False) -> List[str]:
-    """What in cfg asks for a path the port's CLI does not have, each with
-    the ROADMAP item that ports it."""
-    checks = [
-        (cfg.emb, f"--emb (label audio features): {Q1} 8"),
-        (not cfg.exp_eye, f"--exp_eye 0 (a field without the eye branch): "
-         f"{Q1} 8"),
-    ]
-    if test:
-        checks += [
-            (cfg.infer_march_group not in (1, 2), "--infer_march_group "
-             f"{cfg.infer_march_group}: {Q1} 8"),
-            (cfg.infer_march_variant != "nb5w", "--infer_march_variant "
-             f"{cfg.infer_march_variant}: {Q1} 8"),
-            (not cfg.infer_march_prepass, f"--infer_march_prepass 0: {Q1} 8"),
-            (not cfg.infer_table_bf16, "--infer_table_bf16 0 (the field "
-             f"kernel reads bf16 tables): {Q1} 8"),
-            (cfg.infer_sample_frac > 0, "--infer_sample_frac (stage-1 sample "
-             f"compaction): {Q1} 8"),
-        ]
-    return [msg for bad, msg in checks if bad]
-
-
-def _refuse(cfg: Config, test: bool = False) -> None:
-    bad = unported(cfg, test)
-    if bad:
-        raise NotImplementedError("the port's CLI has no path for: "
-                                  + "; ".join(bad))
-
-
 def _build_world(cfg: Config, ds, device):
     """(settings, occupancy with the cells no training camera sees
     marked, the seeded head field of cfg.encoder with the camera
@@ -190,6 +162,7 @@ def _build_world(cfg: Config, ds, device):
                               ds.intrinsics)
     field = NeRFField(bound=cfg.bound, audio_in_dim=cfg.audio_in_dim,
                       att=cfg.att, ind_dim=cfg.ind_dim, ind_num=cfg.ind_num,
+                      exp_eye=cfg.exp_eye, emb=cfg.emb,
                       camera_frames=cfg.ind_num if cfg.train_camera else 0,
                       dtype=torch.bfloat16 if cfg.fp16 else torch.float32,
                       encoder=cfg.encoder).to(device)
@@ -252,7 +225,6 @@ def run_train(cfg: Config, device=None, stop_after: Optional[int] = None
     from .utils.device import resolve_device
 
     dev = resolve_device(device)
-    _refuse(cfg)
     sharding = None
     if cfg.data_parallel > 0:
         import torch.distributed as dist
@@ -320,7 +292,8 @@ def _run_train(cfg: Config, dev: torch.device, stop_after: Optional[int],
                   ind_dim=cfg.ind_dim, ema_decay=cfg.ema_decay,
                   ema_interval=cfg.ema_update_interval,
                   update_extra_interval=cfg.update_extra_interval,
-                  train_camera=cfg.train_camera, data_sharding=sharding)
+                  train_camera=cfg.train_camera, exp_eye=cfg.exp_eye,
+                  data_sharding=sharding)
     # patch-sampled training carries the reference's 0.1 x LPIPS patch
     # term, not under the lips finetune
     patch_lpips = (_lpips_params_or_die(cfg, trainer, "--patch_size > 1",
@@ -347,7 +320,7 @@ def _run_train(cfg: Config, dev: torch.device, stop_after: Optional[int],
             **common)
     eval_fn = make_eval_step(field, settings, H=ds.H, W=ds.W,
                              intrinsics=ds.intrinsics, ind_dim=cfg.ind_dim,
-                             use_ema=cfg.use_ema)
+                             exp_eye=cfg.exp_eye, use_ema=cfg.use_ema)
     refresh = make_density_grid_update(field, settings)
     budgets = {"train_budget": train_budget, "stage2": stage2,
                "split": cfg.train_stage_split,
@@ -624,7 +597,6 @@ def run_save_mesh(cfg: Config, device=None) -> Dict:
     from .utils.device import resolve_device
 
     dev = resolve_device(device)
-    _refuse(cfg)
     ds = NeRFDataset(cfg, type="train")
     settings, occ, field = _build_world(cfg, ds, dev)
     trainer = Trainer(cfg.workspace)
@@ -801,7 +773,6 @@ def run_test(cfg: Config, device=None) -> None:
     from .utils.rays import get_bg_coords, get_rays
 
     dev = resolve_device(device)
-    _refuse(cfg, test=True)
     head_cfg = cfg.replace(torso=False) if cfg.torso else cfg
     ds = NeRFDataset(head_cfg, type="train" if cfg.test_train else "test")
     ds.training = False
@@ -860,7 +831,8 @@ def run_test(cfg: Config, device=None) -> None:
     field.eval()
     isettings = dataclasses.replace(
         settings, max_steps=cfg.infer_samples or settings.max_steps)
-    packed = field.bake_tables(torch.bfloat16)
+    packed = field.bake_tables(torch.bfloat16 if cfg.infer_table_bf16
+                               else torch.float32)
     tables = build_inference_tables(occ.occ, settings.bound, variants=())
     k2 = cfg.infer_window_candidates
     march_group = cfg.infer_march_group
@@ -947,9 +919,10 @@ def run_test(cfg: Config, device=None) -> None:
                 apply, isettings, origin, rays_d, H, W, bg, budget=budget,
                 tables=tables, window_candidates=k2,
                 stage_split=cfg.infer_stage_split, stage2_budget=s2_budget,
-                march_group=march_group, march_variant="nb5wp",
+                march_group=march_group,
+                march_variant="nb5wp",
                 eval_budget=eval_budget, march_bucket=march_bucket,
-                aabb=aabb)
+                march_prepass=use_prepass, aabb=aabb)
         else:
             out = render_rays_compact(
                 apply, isettings, origin.expand(rays_d.shape), rays_d, bg,

@@ -102,10 +102,18 @@ class NeRFField(nn.Module):
     def __init__(self, bound: float = 1.0, audio_in_dim: int = 1024,
                  audio_dim: int = 32, att: int = 2, ind_dim: int = 4,
                  ind_num: int = 10_000, camera_frames: int = 0,
-                 dtype: torch.dtype = torch.float32, encoder: str = "dense"):
+                 dtype: torch.dtype = torch.float32, encoder: str = "dense",
+                 exp_eye: bool = True, emb: bool = False):
         """encoder: "dense" (tables encoder_{xy,yz,xz}_l{0..3}) or "hash"
         (tables encoder_xy, encoder_yz, encoder_xz [total rows, 1] of
         triplane_spec(bound)).
+
+        exp_eye: the eye branch (eye_att_net, and the eye column of
+        sigma_net's first layer); without it the density is a function of
+        the encoding and the audio alone, as in the JAX field, whose
+        parameter tree then has no eye_att_net. emb: the audio features
+        are labels, looked up in an embedding [audio_in_dim,
+        audio_in_dim] before the audio net (the JAX field's nn.Embed).
 
         camera_frames > 0: the learned per-frame pose refinement
         (train_camera) as parameters camera_dR (Euler degrees) and
@@ -142,11 +150,16 @@ class NeRFField(nn.Module):
                                 self.spec.level_dim)))
             in_dim = 3 * self.spec.output_dim              # 36
         self.in_dim = in_dim
+        self.exp_eye = exp_eye
+        self.emb = emb
+        if emb:
+            self.embedding = nn.Embedding(audio_in_dim, audio_in_dim)
         self.audio_net = AudioNet(audio_in_dim, audio_dim, dtype=dtype)
         if att > 0:
             self.audio_att_net = AudioAttNet(audio_dim, dtype=dtype)
-        self.eye_att_net = MLP(in_dim, 1, 16, 2, dtype=dtype)
-        self.sigma_net = MLP(in_dim + audio_dim + 1, 1 + 64, 64, 3,
+        if exp_eye:
+            self.eye_att_net = MLP(in_dim, 1, 16, 2, dtype=dtype)
+        self.sigma_net = MLP(in_dim + audio_dim + int(exp_eye), 1 + 64, 64, 3,
                              dtype=dtype)
         self.color_net = MLP(16 + 64 + ind_dim, 3, 64, 2, dtype=dtype)
         self.unc_net = MLP(in_dim, 1, 32, 2, dtype=dtype)
@@ -203,8 +216,12 @@ class NeRFField(nn.Module):
                          dim=-1)
 
     def encode_audio_train(self, a: torch.Tensor) -> torch.Tensor:
-        """a: [n_frames, T, C_in] (8 frames when att > 0) -> [1, audio_dim],
-        with gradients (the training step's audio path)."""
+        """a: [n_frames, T, C_in] (8 frames when att > 0; with emb the
+        labels [n_frames, T], truncated to integers like the JAX field's
+        astype(int32)) -> [1, audio_dim], with gradients (the training
+        step's audio path)."""
+        if self.emb:
+            a = self.embedding(a.to(torch.int64))
         enc = self.audio_net(a)
         if self.att > 0:
             enc = self.audio_att_net(enc[None])
@@ -216,22 +233,29 @@ class NeRFField(nn.Module):
         return self.encode_audio_train(a)
 
     def density(self, x: torch.Tensor, enc_a: torch.Tensor,
-                e: torch.Tensor, enc_x: Optional[torch.Tensor] = None,
+                e: Optional[torch.Tensor],
+                enc_x: Optional[torch.Tensor] = None,
                 packed: Optional[Dict[str, torch.Tensor]] = None
                 ) -> DensityOutputs:
         """sigma (plain exp), geometry features and the two ambient
-        attentions of points x [N, 3], at eye value e [1]."""
+        attentions of points x [N, 3], at eye value e [1]. Without the eye
+        branch (exp_eye False) or eye value (e None) the eye attention is
+        0 and sigma_net reads no eye column, as in the JAX field."""
         if enc_x is None:
             enc_x = self.encode_x(x, packed)
         N = enc_x.shape[0]
         enc_a = enc_a.reshape(1, -1).expand(N, self.audio_dim)
         aud_ch_att = self.aud_ch_att_net(enc_x)
         enc_w = enc_a * aud_ch_att
-        eye_att = _sigmoid(self.eye_att_net(enc_x))                # [N, 1]
-        # under bfloat16 compute the float32 encoding and eye value promote
-        # the concatenation to float32; sigma_net casts it back
-        h = self.sigma_net(
-            torch.cat([enc_x, enc_w, e.reshape(1, 1) * eye_att], dim=-1))
+        if self.exp_eye and e is not None:
+            eye_att = _sigmoid(self.eye_att_net(enc_x))            # [N, 1]
+            # under bfloat16 compute the float32 encoding and eye value
+            # promote the concatenation to float32; sigma_net casts it back
+            h = self.sigma_net(torch.cat(
+                [enc_x, enc_w, e.reshape(1, 1) * eye_att], dim=-1))
+        else:
+            eye_att = enc_x.new_zeros((N, 1))
+            h = self.sigma_net(torch.cat([enc_x, enc_w], dim=-1))
         # plain exp is the reference activation (not trunc_exp)
         sigma = torch.exp(h[..., 0].float())
         # safe L2: the plain norm's gradient at an exactly-zero vector is
@@ -240,13 +264,14 @@ class NeRFField(nn.Module):
         return DensityOutputs(sigma, h[..., 1:], amb_aud, eye_att[..., 0])
 
     def forward(self, x: torch.Tensor, d: torch.Tensor, enc_a: torch.Tensor,
-                c: Optional[torch.Tensor], e: torch.Tensor,
+                c: Optional[torch.Tensor], e: Optional[torch.Tensor],
                 compute_uncertainty: bool = True,
                 packed: Optional[Dict[str, torch.Tensor]] = None
                 ) -> FieldOutputs:
         """The training field: points x [N, 3], unit view dirs d [N, 3],
         audio code enc_a [1, audio_dim], individual code c [ind_dim] or
-        None, eye value e [1]. packed: the step's tables
+        None, eye value e [1] (None, or ignored, without the eye branch).
+        packed: the step's tables
         (bake_train_tables), baked here when None."""
         enc_x = self.encode_x(x, packed)
         dens = self.density(x, enc_a, e, enc_x)
@@ -273,9 +298,15 @@ class NeRFField(nn.Module):
         initialisers: triplane tables uniform in ±1e-4, individual codes
         normal x 0.1, kernels torch_linear_init (uniform in
         ±1/sqrt(shape[0]) of the flax kernel: its fan-in for a Dense,
-        the kernel width 3 for a Conv), biases zero. Returns self."""
+        the kernel width 3 for a Conv), biases zero, the label embedding
+        normal with variance 1 / width (flax's nn.Embed default, untruncated
+        here). Returns self."""
         for name, p in self.named_parameters():
             if name in ("camera_dR", "camera_dT"):
+                continue
+            if name == "embedding.weight":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) / math.sqrt(p.shape[1]))
                 continue
             if name.startswith("encoder_"):
                 bound = 1e-4
@@ -306,23 +337,29 @@ def make_fused_apply(field: NeRFField, packed: Dict[str, torch.Tensor],
     value fold into the weights here, once per frame.
 
     use_kernel=True runs the field kernel's wrapper (the CUDA kernel on a
-    CUDA device, its plain version on the CPU): for the dense encoder
-    fused_field_eval (the triplane lookup, the SH basis and the MLP stack
-    in the kernel), for the hash encoder grid_encode in plain PyTorch and
-    then fused_field_enc_eval (the kernel's entry that reads enc_x). False
-    runs the plain version on any device — the reference the kernel is
-    held to (the JAX package's --fused 1)."""
+    CUDA device, its plain version on the CPU): for the dense encoder's
+    bf16 tables (the serving default) fused_field_eval (the triplane
+    lookup, the SH basis and the MLP stack in the kernel); for float32
+    tables (infer_table_bf16 off) and for the hash encoder, the encoding
+    in plain PyTorch (packed_lookup over the f32 tables, or grid_encode)
+    and then fused_field_enc_eval (the kernel's entry that reads enc_x),
+    as the JAX package looks up outside its Pallas kernel. False runs the
+    plain version on any device — the reference the kernel is held to
+    (the JAX package's --fused 1). A field without the eye branch has
+    zero eye weights here (extract_field_weights), so its eye term is 0."""
     fw = ff.fold_frame_weights(ff.extract_field_weights(field), enc_a,
                                ind_code, eye)
     # the kernel's weight vector, once per frame
     wpack = (ff.pack_frame_weights(fw)
              if use_kernel and fw.sig1.device.type == "cuda" else None)
+    enc_entry = field.encoder == "hash" or any(
+        t.dtype != torch.bfloat16 for t in packed.values())
 
     @torch.no_grad()
     def apply(pts, dirs):
         # looked up in the module at each call, so a caller can wrap them
-        if field.encoder == "hash":
-            enc_x = field.encode_x(pts.float())
+        if enc_entry:
+            enc_x = field.encode_x(pts.float(), packed or None)
             if use_kernel:
                 return ff.fused_field_enc_eval(fw, enc_x, dirs, wpack)
             out = ff.fused_field_reference(fw, enc_x,

@@ -69,17 +69,28 @@ class FrameWeights(NamedTuple):
 def extract_field_weights(field, in_dim: int = 36,
                           audio_dim: int = 32) -> FieldWeights:
     """Pull the MLP weights out of a NeRFField, transposed back to the
-    [fan_in, fan_out] layout the decomposition is written in."""
+    [fan_in, fan_out] layout the decomposition is written in. A field
+    without the eye branch (exp_eye off: no eye_att_net, no eye row in
+    sigma_net) gets zero eye0, eye1 and sig0e, so its eye term is 0 for
+    any eye value (the JAX package's folded path has no such case: it
+    reads eye_att_net and raises KeyError without it)."""
     def k(net, layer):
         return getattr(field, net).layer(layer).weight.detach().T.float()
 
     s0 = k("sigma_net", 0)
     c0 = k("color_net", 0)
+    if getattr(field, "exp_eye", True):
+        eye0, eye1 = k("eye_att_net", 0), k("eye_att_net", 1)
+        sig0e = s0[in_dim + audio_dim]
+    else:
+        eye0 = s0.new_zeros((in_dim, 16))
+        eye1 = s0.new_zeros((16, 1))
+        sig0e = s0.new_zeros(s0.shape[1])
     return FieldWeights(
         aud0=k("aud_ch_att_net", 0), aud1=k("aud_ch_att_net", 1),
-        eye0=k("eye_att_net", 0), eye1=k("eye_att_net", 1),
+        eye0=eye0, eye1=eye1,
         sig0x=s0[:in_dim], sig0a=s0[in_dim:in_dim + audio_dim],
-        sig0e=s0[in_dim + audio_dim], sig1=k("sigma_net", 1),
+        sig0e=sig0e, sig1=k("sigma_net", 1),
         sig2=k("sigma_net", 2), col0s=c0[:16], col0g=c0[16:80],
         col0i=c0[80:], col1=k("color_net", 1))
 

@@ -1,21 +1,34 @@
-"""Interval-guided, ray-compacted block march — the serving subset of
-lzzx_nerf_tpu/ops/march2.py (variants nb5w / nb5wp with the prepass, and
-the per-ray exact neighbourhood march of group 1).
+"""Interval-guided, ray-compacted marching (port of
+lzzx_nerf_tpu/ops/march2.py): the serving marches and their host
+planners, and the training step's window march.
 
 Occupancy tables are built once per model load (build_inference_tables,
-then ensure_variant_tables for the one the resolved plan marches with);
+then ensure_variant_tables for the ones the resolved plan marches with);
 per frame the renderer intersects 2x2-pixel blocks with the column z-slabs
 (ray_windows), drops blocks the dilated-occupancy prepass proves dead
 (prepass_block_hits), compacts the rest into a fixed budget (compact_rays)
-and marches them (march_rays_window_bitmask_nb_block; group 1 and the
-per-ray compact render march each ray with march_rays_window_bitmask_nb).
-The host planners size the candidate count K2 and step the block march
-down to the per-ray march outside its drift envelope
-(resolve_march_plan), plan the short/long bucket march
-(measure_bucket_plan, bucket_short_budget) and count the blocks the eval
-re-compaction keeps (measure_real_blocks_host). The training step marches
-its compacted rays with march_rays_window (the per-candidate occupancy
-test over each ray's window).
+and marches them:
+- group 2, the block-shared exact march (march_rays_window_bitmask_nb_block):
+  one row of the z-word-indexed 5x5 table per (2x2 block, 2-candidate
+  group) serves the block's 8 candidates. The JAX package's variants of
+  it (BLOCK_VARIANTS) are other tables and selects of the same samples,
+  so every one marches here through nb5w's select (a session on the card
+  runs it as nb5wp, the kernel of ops/march_select.py); the plan still
+  steps the quadrant variants down where their envelope fails, as JAX's
+  does;
+- group 3, the block-lattice 3x3 march (march_rays_window_bitmask_nb_block3),
+  which moves every ray of a block onto the block's lattice;
+- group 1 and the per-ray compact render, the per-ray exact 3x3 march
+  (march_rays_window_bitmask_nb);
+- a negative group, the dilated single-column march
+  (march_rays_window_bitmask) with group |march_group|.
+The host planners size the candidate count K2 and step a plan down outside
+its drift envelope (resolve_march_plan: group 3 -> 2, quad* -> nb5w,
+2 -> 1), plan the short/long bucket march (measure_bucket_plan,
+bucket_short_budget) and count the blocks the eval re-compaction keeps
+(measure_real_blocks_host). The training step marches its compacted rays
+with march_rays_window (the per-candidate occupancy test over each ray's
+window).
 
 Bit tables are stored as int32 tensors holding the uint32 bit patterns of
 the JAX package's tables (PyTorch's uint32 support is partial); a right
@@ -46,15 +59,14 @@ class RayWindow(NamedTuple):
 
 class InferenceTables(NamedTuple):
     """Occupancy products of the serving marches: the column intervals
-    always, and the bit tables a plan needs (needed_variant_tables): the
-    nb5w table and the dilated words of the group-2 block march with
-    prepass, the 3x3-neighbourhood table of the per-ray march."""
+    always, and the bit tables a plan needs (needed_variant_tables)."""
 
     z_lo: torch.Tensor                            # [H, H] window lower bound
     z_hi: torch.Tensor                            # [H, H] upper bound
-    col_nb5wmask: Optional[torch.Tensor] = None   # [H*H*(H//32), 50] int32
-    col_dilwords: Optional[torch.Tensor] = None   # [H*H*(H//32)] int32
-    col_nbmask: Optional[torch.Tensor] = None     # [H*H, 9*(H//32)] int32
+    col_nb5wmask: Optional[torch.Tensor] = None   # [H*H*(H//32), 50] "nb5w"
+    col_dilwords: Optional[torch.Tensor] = None   # [H*H*(H//32)] "dil"
+    col_nbmask: Optional[torch.Tensor] = None     # [H*H, 9*(H//32)] "nb"
+    col_bitmask: Optional[torch.Tensor] = None    # [H*H, H//32] "bit"
 
 
 class CompactSet(NamedTuple):
@@ -168,19 +180,57 @@ def _pack_z_words(grid: torch.Tensor) -> torch.Tensor:
     return _as_int32_bits(torch.sum(bits << shifts, dim=-1))
 
 
+def _check_grid(occ: torch.Tensor) -> int:
+    H = occ.shape[1]
+    if H % 32:
+        raise ValueError("grid size must be a multiple of 32")
+    return H
+
+
+def column_bitmasks(occ: torch.Tensor, dilate: int = 1) -> torch.Tensor:
+    """occ [CAS, H, H, H] -> [H*H, H//32]: each (x, y) column's z-words,
+    OR-dilated `dilate` times over its 3x3 xy-neighbourhood (the table of
+    the dilated single-column march)."""
+    H = _check_grid(occ)
+    od = occ[0].to(torch.float32).permute(2, 0, 1)[None]     # [1, z, x, y]
+    for _ in range(dilate):
+        # -inf padding leaves every window holding its in-grid maximum
+        od = F.max_pool2d(od, 3, 1, 1)
+    return _pack_z_words(od[0].permute(1, 2, 0)).reshape(H * H, H // 32
+                                                          ).contiguous()
+
+
+def _neighbourhood_blocks(occ: torch.Tensor, offsets) -> torch.Tensor:
+    """[H, H, len(offsets), H//32]: for each (x, y) the z-words of the
+    columns (x + dx, y + dy) for (dx, dy) in offsets (out-of-grid columns
+    read as 0)."""
+    H = _check_grid(occ)
+    words = _pack_z_words(occ[0])                           # [H, H, W32]
+    pad = max(max(abs(dx), abs(dy)) for dx, dy in offsets)
+    padded = F.pad(words, (0, 0, pad, pad, pad, pad))
+    return torch.stack([padded[pad + dx:pad + dx + H, pad + dy:pad + dy + H]
+                        for dx, dy in offsets], dim=2)
+
+
+def _word_pairs(blocks: torch.Tensor) -> torch.Tensor:
+    """[R, NF, W32] z-words -> [R * W32, NF * 2]: row r * W32 + w0 holds
+    each column's words (w0, w0 + 1), word W32 read as 0."""
+    R, NF, W32 = blocks.shape
+    padded = F.pad(blocks, (0, 1))
+    w = torch.stack([padded[:, :, w0:w0 + 2] for w0 in range(W32)], dim=1)
+    return w.reshape(R * W32, NF * 2).contiguous()
+
+
+_NB3 = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+_NB5 = tuple((dx, dy) for dx in range(-2, 3) for dy in range(-2, 3))
+
+
 def column_bitmasks_neighborhood(occ: torch.Tensor) -> torch.Tensor:
     """occ [CAS, H, H, H] -> [H*H, 9*(H//32)]: for each (x, y) cell the
     exact z-words of its 3x3 neighbourhood, in blocks of H//32 words
     ordered (dx+1)*3 + (dy+1) (out-of-grid columns read as 0)."""
     H = occ.shape[1]
-    if H % 32:
-        raise ValueError("grid size must be a multiple of 32")
-    words = _pack_z_words(occ[0])                           # [H, H, W32]
-    padded = F.pad(words, (0, 0, 1, 1, 1, 1))
-    blocks = [padded[1 + dx:1 + dx + H, 1 + dy:1 + dy + H]
-              for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
-    return torch.cat(blocks, dim=-1).reshape(H * H, 9 * (H // 32)
-                                              ).contiguous()
+    return _neighbourhood_blocks(occ, _NB3).reshape(H * H, -1).contiguous()
 
 
 def column_bitmasks_neighborhood5_words(occ: torch.Tensor) -> torch.Tensor:
@@ -188,17 +238,8 @@ def column_bitmasks_neighborhood5_words(occ: torch.Tensor) -> torch.Tensor:
     field nb*2 + i = the z-word w0+i of neighbour nb = (dx+2)*5 + (dy+2)
     of column (x, y) (out-of-grid columns and word W32 read as 0)."""
     H = occ.shape[1]
-    if H % 32:
-        raise ValueError("grid size must be a multiple of 32")
-    W32 = H // 32
-    words = _pack_z_words(occ[0])                           # [H, H, W32]
-    padded = F.pad(words, (0, 0, 2, 2, 2, 2))
-    blocks = [padded[2 + dx:2 + dx + H, 2 + dy:2 + dy + H]
-              for dx in (-2, -1, 0, 1, 2) for dy in (-2, -1, 0, 1, 2)]
-    nt = torch.stack(blocks, dim=2)                         # [H, H, 25, W32]
-    nt = F.pad(nt, (0, 1)).reshape(H * H, 25, W32 + 1)
-    w = torch.stack([nt[:, :, w0:w0 + 2] for w0 in range(W32)], dim=1)
-    return w.reshape(H * H * W32, 50).contiguous()
+    return _word_pairs(_neighbourhood_blocks(occ, _NB5).reshape(
+        H * H, 25, H // 32))
 
 
 def dilated_occupancy_words(occ: torch.Tensor, dxy: int = 2, dz: int = 3
@@ -213,13 +254,29 @@ def dilated_occupancy_words(occ: torch.Tensor, dxy: int = 2, dz: int = 3
     return _pack_z_words(od).reshape(H * H * (H // 32)).contiguous()
 
 
+# table name -> (InferenceTables field, builder)
+_TABLES = {
+    "nb5w": ("col_nb5wmask", column_bitmasks_neighborhood5_words),
+    "dil": ("col_dilwords", dilated_occupancy_words),
+    "nb": ("col_nbmask", column_bitmasks_neighborhood),
+    "bit": ("col_bitmask", column_bitmasks),
+}
+# the group-2 block march's variants: nb5w / nb5wp and the JAX package's
+# alternate tables and selects of the same samples, each marched here as
+# nb5w
+BLOCK_VARIANTS = ("nb5w", "nb5wp", "nb5wz", "nb5wz4", "wslice", "nb_first",
+                  "zband", "zband4", "quad", "quadw", "quadwx")
+QUAD_VARIANTS = ("quad", "quadw", "quadwx")
+
+
 def build_inference_tables(occ: torch.Tensor, bound: float,
                            dilate_intervals: int = 2,
                            variants: Tuple[str, ...] = ("nb5w", "dil")
                            ) -> InferenceTables:
-    """The column intervals and the bit tables named in `variants`
-    ("nb5w", "dil", "nb"); the default builds those of the nb5w/nb5wp
-    block march with prepass."""
+    """The column intervals and the bit tables named in `variants` (the
+    keys of _TABLES); the default builds those of the nb5w/nb5wp block
+    march with prepass. A session builds with variants=() and then the
+    tables its resolved plan needs (needed_variant_tables)."""
     z_lo, z_hi = column_intervals(occ, bound, dilate=dilate_intervals)
     return ensure_variant_tables(InferenceTables(z_lo=z_lo, z_hi=z_hi), occ,
                                  variants)
@@ -227,32 +284,32 @@ def build_inference_tables(occ: torch.Tensor, bound: float,
 
 def needed_variant_tables(march_group: int, march_variant: str,
                           prepass: bool = False) -> Tuple[str, ...]:
-    """The bit tables a resolved plan marches with: the nb5w table (and
-    with the prepass the dilated words) for the group-2 block march, the
-    3x3-neighbourhood table for group 1 and the per-ray compact render.
-    The JAX package builds its 3x3 table with every plan; here it is built
-    when a plan needs it."""
+    """The bit tables a resolved plan marches with: the group-2 block
+    march, in every variant, the nb5w table (with the prepass also the
+    dilated words), groups 1 and 3 (and the per-ray compact render) the
+    3x3-neighbourhood table, a negative group the dilated single-column
+    table. The JAX package builds its 3x3 and single-column tables with
+    every plan, and a variant's own table; here each is built when a plan
+    needs it."""
     if march_group == 2:
-        if march_variant not in ("nb5w", "nb5wp"):
-            raise NotImplementedError(
-                f"march variant {march_variant!r} is not ported "
-                "(ROADMAP Queue 1 item 8)")
+        if march_variant not in BLOCK_VARIANTS:
+            raise ValueError(
+                f"unknown nb-block select variant {march_variant!r}")
         return ("nb5w",) + (("dil",) if prepass else ())
-    if march_group == 1:
+    if march_group in (1, 3):
         return ("nb",)
-    raise NotImplementedError(f"march group {march_group} is not ported "
-                              "(ROADMAP Queue 1 item 8)")
+    if march_group < 0:
+        return ("bit",)
+    raise ValueError(f"march group {march_group}: 1, 2, 3 or a negative "
+                     "dilated group")
 
 
 def ensure_variant_tables(tables: InferenceTables, occ: torch.Tensor,
                           need: Tuple[str, ...]) -> InferenceTables:
     """Build the tables in `need` that `tables` lacks."""
-    make = {"nb5w": ("col_nb5wmask", column_bitmasks_neighborhood5_words),
-            "dil": ("col_dilwords", dilated_occupancy_words),
-            "nb": ("col_nbmask", column_bitmasks_neighborhood)}
     upd = {}
     for v in need:
-        field, fn = make[v]
+        field, fn = _TABLES[v]
         if getattr(tables, field) is None:
             upd[field] = fn(occ)
     return tables._replace(**upd) if upd else tables
@@ -358,6 +415,69 @@ def march_rays_window(rays_o, rays_d, t_start, t_end, slot_valid,
     return _lattice_samples(rays_o, rays_d, t0, sel_k, mask, bound, dt)
 
 
+def _anchor_cells(p: torch.Tensor, bound: float, H: int) -> torch.Tensor:
+    """Fetch-point positions -> int64 cells in the JAX marchers' float
+    order for anchors: clip((p / bound + 1) * 0.5 * H, 0, H - 1) of the
+    clipped position (_cells multiplies by 0.5 first, as JAX does for the
+    candidates)."""
+    q = (torch.clamp(p, -bound, bound) / bound + 1.0) * 0.5 * H
+    return torch.clamp(q, 0, H - 1).to(torch.int64)
+
+
+def _noisy_lattice(t_start, dt: float, noise, nears):
+    """(lattice start t0, floor below which candidates are masked or
+    None): march_rays_window's training lattice."""
+    if noise is None:
+        return t_start, None
+    if nears is None:
+        raise ValueError("noise marching needs `nears` for the lattice "
+                         "floor")
+    return t_start + dt * (noise - 1.0), nears + dt * noise - 1e-4 * dt
+
+
+def _check_samples(max_samples: int, num_cand: int) -> None:
+    if max_samples > num_cand:
+        raise ValueError(
+            f"max_samples ({max_samples}) cannot exceed window candidates "
+            f"({num_cand})")
+
+
+def march_rays_window_bitmask(rays_o, rays_d, t_start, t_end, slot_valid,
+                              col_bitmask: torch.Tensor, bound: float,
+                              dt: float, num_cand: int, max_samples: int,
+                              group: int = 2) -> MarchResult:
+    """The dilated single-column march (march_group < 0 with group =
+    |march_group|): one column fetch of the dilated table (column_bitmasks)
+    per `group` consecutive candidates, at the group's midpoint, and each
+    candidate's z bit from that column. A superset of the exact march's
+    samples (empty neighbour cells the dilation admits can take a slot)."""
+    B = rays_o.shape[0]
+    W32 = col_bitmask.shape[1]
+    H = W32 * 32
+    _check_samples(max_samples, num_cand)
+    G = (num_cand + group - 1) // group
+    dev = rays_o.device
+    k = torch.arange(num_cand, dtype=torch.float32, device=dev)
+    t_cand = t_start[:, None] + k[None] * dt                   # [B, K2]
+    gk = torch.arange(G, dtype=torch.float32, device=dev) * group + (
+        group - 1) / 2.0
+    t_g = t_start[:, None] + gk[None] * dt                     # [B, G]
+    pg = _anchor_cells(rays_o[:, None, :] + t_g[..., None]
+                       * rays_d[:, None, :], bound, H)
+    rows = col_bitmask.index_select(0, (pg[..., 0] * H + pg[..., 1])
+                                    .reshape(-1)).reshape(B, G, W32)
+    pz = rays_o[:, 2:3] + t_cand * rays_d[:, 2:3]
+    cz = _anchor_cells(pz, bound, H)                           # [B, K2]
+    # candidate k reads the row of its group k // group
+    grp = (torch.arange(num_cand, device=dev) // group)[None].expand(B, -1)
+    row_k = torch.gather(rows, 1, grp[..., None].expand(B, num_cand, W32))
+    wsel = torch.gather(row_k, 2, (cz >> 5)[..., None])[..., 0]
+    occ = ((wsel.to(torch.int64) >> (cz & 31)) & 1) > 0
+    valid = occ & (t_cand < t_end[:, None]) & slot_valid[:, None]
+    sel_k, mask = first_s_select(valid, num_cand, max_samples)
+    return _lattice_samples(rays_o, rays_d, t_start, sel_k, mask, bound, dt)
+
+
 def march_rays_window_bitmask_nb(rays_o, rays_d, t_start, t_end, slot_valid,
                                  col_nbmask: torch.Tensor, bound: float,
                                  dt: float, num_cand: int, max_samples: int,
@@ -378,25 +498,14 @@ def march_rays_window_bitmask_nb(rays_o, rays_d, t_start, t_end, slot_valid,
     H = W32 * 32
     if col_nbmask.shape != (H * H, 9 * W32):
         raise ValueError("col_nbmask is not an [H*H, 9*(H//32)] table")
-    if noise is None:
-        t0 = t_start
-        floor_t = None
-    else:
-        if nears is None:
-            raise ValueError("noise marching needs `nears` for the lattice "
-                             "floor")
-        t0 = t_start + dt * (noise - 1.0)
-        floor_t = nears + dt * noise - 1e-4 * dt
+    t0, floor_t = _noisy_lattice(t_start, dt, noise, nears)
     drift_cells = (dt / 2.0) * H / (2.0 * bound)
     if drift_cells > 1.0 + 1e-6:
         raise ValueError(
             f"nb-march drift {drift_cells:.2f} cells exceeds the ±1 "
             f"neighborhood (dt={dt:.4f}, bound={bound}); use "
             "march_rays_window for this geometry")
-    if max_samples > num_cand:
-        raise ValueError(
-            f"max_samples ({max_samples}) cannot exceed window candidates "
-            f"({num_cand})")
+    _check_samples(max_samples, num_cand)
     G = (num_cand + 1) // 2
     dev = rays_o.device
     kg = (torch.arange(G, device=dev, dtype=torch.float32)[:, None] * 2
@@ -404,11 +513,9 @@ def march_rays_window_bitmask_nb(rays_o, rays_d, t_start, t_end, slot_valid,
     t_cand = t0[:, None, None] + kg[None] * dt                 # [B, G, 2]
     gk = torch.arange(G, device=dev, dtype=torch.float32) * 2 + 0.5
     t_g = t0[:, None] + gk[None] * dt                          # [B, G]
-    pg = torch.clamp(rays_o[:, None, :] + t_g[..., None] * rays_d[:, None, :],
-                     -bound, bound)
-    q = (pg / bound + 1.0) * 0.5 * H
-    gx = torch.clamp(q[..., 0], 0, H - 1).to(torch.int64)
-    gy = torch.clamp(q[..., 1], 0, H - 1).to(torch.int64)
+    pg = _anchor_cells(rays_o[:, None, :] + t_g[..., None]
+                       * rays_d[:, None, :], bound, H)
+    gx, gy = pg[..., 0], pg[..., 1]
     gp = _cells(rays_o[:, None, None, :]
                 + t_cand[..., None] * rays_d[:, None, None, :], bound, H)
     cx, cy, cz = gp[..., 0], gp[..., 1], gp[..., 2]            # [B, G, 2]
@@ -425,6 +532,58 @@ def march_rays_window_bitmask_nb(rays_o, rays_d, t_start, t_end, slot_valid,
         valid = valid & (t_cand >= floor_t[:, None])
     sel_k, mask = first_s_select(valid, num_cand, max_samples)
     return _lattice_samples(rays_o, rays_d, t0, sel_k, mask, bound, dt)
+
+
+# a debugging check of the block-lattice march's word-pair select (the JAX
+# package's DEBUG_WORD_ENVELOPE): a live candidate whose z-word lies
+# outside its group's pair {w0, w0 + 1} would read the wrong word. The envelope rules
+# it out for every geometry the plan admits; when this flag is on, the
+# marches count such candidates (a host sync per march) so a test can
+# assert none occurred. Off in production.
+DEBUG_WORD_ENVELOPE = False
+_word_envelope_violations = 0
+
+
+def reset_word_envelope_violations() -> None:
+    global _word_envelope_violations
+    _word_envelope_violations = 0
+
+
+def word_envelope_violations() -> int:
+    return _word_envelope_violations
+
+
+def _word_pair_index(word, w0b, live):
+    """clip(word - w0, 0, 1), counting the candidates outside the pair
+    when DEBUG_WORD_ENVELOPE is on."""
+    global _word_envelope_violations
+    delta = word - w0b
+    if DEBUG_WORD_ENVELOPE:
+        _word_envelope_violations += int((((delta < 0) | (delta > 1))
+                                          & live).sum())
+    return torch.clamp(delta, 0, 1)
+
+
+def _u32(v: torch.Tensor) -> torch.Tensor:
+    """int32 table words -> int64 holding their uint32 values."""
+    return v.to(torch.int64) & 0xFFFFFFFF
+
+
+def _word_pair_rows(rows: torch.Tensor, w0: torch.Tensor) -> torch.Tensor:
+    """rows [Bb, G, NF, W32], w0 [Bb, G] -> [Bb, G, NF, 2]: each column's
+    words (w0, w0 + 1), a word past the column reading as 0."""
+    Bb, G, NF, W32 = rows.shape
+    padded = F.pad(rows, (0, 1))
+    idx = (w0[..., None] + torch.arange(2, device=w0.device))[:, :, None]
+    return torch.gather(padded, 3, idx.expand(Bb, G, NF, 2))
+
+
+def _select_fields(rows: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """rows [Bb, G, F] (one per block and group), j [Bb, 4, G, 2] field
+    indices -> the candidates' fields [Bb, 4, G, 2]."""
+    Bb, G, Fw = rows.shape
+    src = rows[:, None].expand(Bb, 4, G, Fw)
+    return torch.gather(src, 3, j)
 
 
 def march_rays_window_bitmask_nb_block(
@@ -447,13 +606,14 @@ def march_rays_window_bitmask_nb_block(
     midpoint 2g+1 of the group's span, serves all 8 candidates.
 
     variant "nb5wp": the candidate select and first-S scan run as the CUDA
-    kernel (ops/march_select.py) on CUDA tensors. "nb5w": the same select
-    in plain PyTorch (march_select_reference) on any device — the kernel's
-    reference. Both give the same samples bit for bit."""
-    if variant not in ("nb5w", "nb5wp"):
-        raise NotImplementedError(
-            f"the port has the nb5w/nb5wp block march only, not {variant!r} "
-            "(ROADMAP Queue 1 item 8)")
+    kernel (ops/march_select.py) on CUDA tensors. Every other variant of
+    BLOCK_VARIANTS runs the same select in plain PyTorch
+    (march_select_reference) on any device, the kernel's reference. The
+    JAX package's variants read other tables through other selects, and
+    keep these samples bit for bit within their envelopes
+    (resolve_march_plan)."""
+    if variant not in BLOCK_VARIANTS:
+        raise ValueError(f"unknown nb-block select variant {variant!r}")
     B = rays_o.shape[0]
     if B % 4:
         raise ValueError("block march needs 4 rays per block")
@@ -467,33 +627,97 @@ def march_rays_window_bitmask_nb_block(
         raise ValueError(
             f"nb-block march: {step_cells:.2f} cells per lattice step "
             "exceeds the ±2 neighbourhood")
-    if max_samples > num_cand:
-        raise ValueError(f"max_samples ({max_samples}) cannot exceed window "
-                         f"candidates ({num_cand})")
+    _check_samples(max_samples, num_cand)
     G = (num_cand + 1) // 2
 
     ob = rays_o.reshape(Bb, 4, 3)
     o_blk = (((ob[:, 0] + ob[:, 1]) + ob[:, 2]) + ob[:, 3]) / 4.0
     gk = torch.arange(G, device=rays_o.device, dtype=torch.float32) * 2 + 1.0
     t_g = t0_block[:, None] + gk[None] * dt                    # [Bb, G]
-    pg = torch.clamp(o_blk[:, None, :] + t_g[..., None] * d_center[:, None, :],
-                     -bound, bound)
-    q = (pg / bound + 1.0) * 0.5 * H
-    gx, gy, gz = (torch.clamp(q[..., a], 0, H - 1).to(torch.int32)
-                  for a in range(3))
+    pg = _anchor_cells(o_blk[:, None, :] + t_g[..., None]
+                       * d_center[:, None, :], bound, H)
+    gx, gy, gz = pg[..., 0], pg[..., 1], pg[..., 2]
     w0 = torch.clamp(torch.clamp(gz - 3, min=0) >> 5, 0, W32 - 1)
 
     select = march_select if variant == "nb5wp" else march_select_reference
-    sel = select(col_mask, gx, gy, w0, rays_o, rays_d, t_start, t_end,
+    sel = select(col_mask, gx.to(torch.int32), gy.to(torch.int32),
+                 w0.to(torch.int32), rays_o, rays_d, t_start, t_end,
                  slot_valid, bound, dt, H, num_cand, max_samples)
     mask = sel >= 0
     sel_k = torch.where(mask, sel, 0).to(torch.float32)
-    t_sel = t_start[:, None] + sel_k * dt
-    xyzs = torch.clamp(rays_o[:, None, :] + t_sel[..., None]
-                       * rays_d[:, None, :], -bound, bound)
-    deltas = torch.where(mask, torch.full_like(t_sel, dt),
-                         torch.zeros_like(t_sel))
-    return MarchResult(xyzs=xyzs, deltas=deltas, ts=t_sel + dt, mask=mask)
+    return _lattice_samples(rays_o, rays_d, t_start, sel_k, mask, bound, dt)
+
+
+def march_rays_window_bitmask_nb_block3(
+    rays_o: torch.Tensor,      # [4*Bb, 3] block-major
+    rays_d: torch.Tensor,      # [4*Bb, 3]
+    nears: torch.Tensor,       # [4*Bb] per-ray AABB entry
+    t_end: torch.Tensor,       # [4*Bb]
+    slot_valid: torch.Tensor,  # [4*Bb]
+    t0_block: torch.Tensor,    # [Bb] the block lattice's start
+    d_center: torch.Tensor,    # [Bb, 3]
+    col_nbmask: torch.Tensor,  # [H*H, 9*(H//32)] (3x3 neighbourhood)
+    bound: float,
+    dt: float,
+    num_cand: int,
+    max_samples: int,
+) -> MarchResult:
+    """The block-lattice march (march_group 3): all 4 rays of a block march
+    on the block's lattice t0_block + k*dt, so a candidate lies dt/2 from
+    its group's anchor (2g + 0.5) and the 3x3 neighbourhood covers its
+    drift (nb_block3_drift_cells <= 1). Candidates before a ray's own
+    AABB entry are masked (nears), not lattice-shifted. Its samples sit on
+    another lattice than the per-ray marches': it is not sample-equal to
+    them (the JAX package's opt-in negative result)."""
+    B = rays_o.shape[0]
+    if B % 4:
+        raise ValueError("block march needs 4 rays per block")
+    Bb = B // 4
+    W32 = col_nbmask.shape[1] // 9
+    H = W32 * 32
+    half_step_cells = (dt / 2.0) * H / (2.0 * bound)
+    if half_step_cells > 1.0 + 1e-6:
+        raise ValueError(
+            f"nb-block3 march: {half_step_cells:.2f} cells per half-step "
+            "exceeds the ±1 neighbourhood")
+    _check_samples(max_samples, num_cand)
+    G = (num_cand + 1) // 2
+    Kp = 2 * G
+    dev = rays_o.device
+    ob = rays_o.reshape(Bb, 4, 3)
+    o_blk = (((ob[:, 0] + ob[:, 1]) + ob[:, 2]) + ob[:, 3]) / 4.0
+    gk = torch.arange(G, device=dev, dtype=torch.float32) * 2 + 0.5
+    t_g = t0_block[:, None] + gk[None] * dt
+    pg = _anchor_cells(o_blk[:, None, :] + t_g[..., None]
+                       * d_center[:, None, :], bound, H)
+    gx, gy, gz = pg[..., 0], pg[..., 1], pg[..., 2]
+    rows = _u32(col_nbmask.index_select(0, (gx * H + gy).reshape(-1))
+                ).reshape(Bb, G, 9, W32)
+    kg = (torch.arange(G, device=dev, dtype=torch.float32)[:, None] * 2
+          + torch.arange(2, device=dev, dtype=torch.float32)[None, :])
+    t_cand = t0_block[:, None, None] + kg[None] * dt           # [Bb, G, 2]
+    t_cand4 = t_cand[:, None].expand(Bb, 4, G, 2)
+    gp = _cells(rays_o.reshape(Bb, 4, 1, 1, 3)
+                + t_cand4[..., None] * rays_d.reshape(Bb, 4, 1, 1, 3),
+                bound, H)
+    cxb, cyb, czb = gp[..., 0], gp[..., 1], gp[..., 2]
+    nb = ((torch.clamp(cxb - gx[:, None, :, None], -1, 1) + 1) * 3
+          + torch.clamp(cyb - gy[:, None, :, None], -1, 1) + 1)
+    live = None
+    if DEBUG_WORD_ENVELOPE:
+        live = ((t_cand4 < t_end.reshape(Bb, 4)[..., None, None])
+                & slot_valid.reshape(Bb, 4)[..., None, None])
+    w0 = torch.clamp(torch.clamp(gz - 2, min=0) >> 5, 0, W32 - 1)
+    pairs = _word_pair_rows(rows, w0).reshape(Bb, G, 18)
+    wsel = _select_fields(pairs, nb * 2 + _word_pair_index(
+        czb >> 5, w0[:, None, :, None], live))
+    occ = (((wsel >> (czb & 31)) & 1) > 0).reshape(B, Kp)[:, :num_cand]
+    t_cand = t_cand4.reshape(B, Kp)[:, :num_cand]
+    valid = (occ & (t_cand >= nears[:, None]) & (t_cand < t_end[:, None])
+             & slot_valid[:, None])
+    sel_k, mask = first_s_select(valid, num_cand, max_samples)
+    t0r = t0_block[:, None].expand(Bb, 4).reshape(B)
+    return _lattice_samples(rays_o, rays_d, t0r, sel_k, mask, bound, dt)
 
 
 # ---- host planners (once per model load) --------------------------------
@@ -504,15 +728,41 @@ def default_window_candidates(bound: float, grid_size: int, dt: float,
     return int(math.ceil(max_extent / dt)) + 4
 
 
+def _drift_terms(dt, bound, grid_size, focal, t_max, min_dz):
+    """(lattice step drift, intra-block angular drift) in cells."""
+    cells_per_world = grid_size / (2.0 * bound)
+    max_dxy = math.sqrt(max(0.0, 1.0 - min_dz * min_dz))
+    step = dt * cells_per_world * max(max_dxy, 1e-3)
+    angular = t_max * (1.0 / max(focal, 1e-6)) * cells_per_world
+    return step, angular
+
+
 def nb_block_drift_cells(dt: float, bound: float, grid_size: int,
                          focal: float, t_max: float, min_dz: float) -> float:
     """Worst-case per-axis cell drift between a candidate's xy cell and its
     block-shared fetch cell; the block march is exact while it is <= 2."""
-    cells_per_world = grid_size / (2.0 * bound)
-    max_dxy = math.sqrt(max(0.0, 1.0 - min_dz * min_dz))
-    step_drift = dt * cells_per_world * max(max_dxy, 1e-3)
-    angular = t_max * (1.0 / max(focal, 1e-6)) * cells_per_world
-    return step_drift + angular
+    step, angular = _drift_terms(dt, bound, grid_size, focal, t_max, min_dz)
+    return step + angular
+
+
+def nb_blockq_drift_cells(dt: float, bound: float, grid_size: int,
+                          focal: float, t_max: float, min_dz: float
+                          ) -> Tuple[float, float]:
+    """(forward, backward) worst-case drift of the quadrant-anchored block
+    march: its half-step anchor makes the lattice drift one-sided (1.5
+    steps forward, 0.5 back), plus the angular term both ways. Exact while
+    forward <= 2 and backward <= 1 (the signed {-1, 0, +1, +2} window)."""
+    step, angular = _drift_terms(dt, bound, grid_size, focal, t_max, min_dz)
+    return 1.5 * step + angular, 0.5 * step + angular
+
+
+def nb_block3_drift_cells(dt: float, bound: float, grid_size: int,
+                          focal: float, t_max: float, min_dz: float) -> float:
+    """Worst-case drift of the block-lattice 3x3 march: half a step (every
+    candidate lies dt/2 from its anchor) plus the angular term; exact
+    while <= 1."""
+    step, angular = _drift_terms(dt, bound, grid_size, focal, t_max, min_dz)
+    return 0.5 * step + angular
 
 
 def block_view(rays_d: torch.Tensor, H: int, W: int):
@@ -588,18 +838,14 @@ def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
     """The serving march plan for one model and camera geometry ->
     (k2, march_group, march_variant). K2 is k2_override when nonzero,
     else the geometric bound (window_candidates_for_scene), tightened
-    with measure="block"/"ray" to the trajectory-measured count. A
-    group-2 plan outside the block march's ±2 drift envelope steps down
-    to the per-ray exact march (group 1); march_group=1 skips the check
-    (the non-block callers). Groups 3 and the quadrant variants are not
-    ported: a plan that asks for one raises (ROADMAP Queue 1 item 8)."""
+    with measure="block"/"ray" to the trajectory-measured count. Then the
+    plan steps down wherever this geometry leaves a march's drift
+    envelope: group 3 -> 2 (nb_block3_drift_cells > 1), a quadrant
+    variant -> nb5w (nb_blockq_drift_cells beyond +2 / -1), group 2 -> 1
+    (nb_block_drift_cells > 2). march_group=1 skips the checks (the
+    non-block callers)."""
     from ..utils.rays import min_corner_dz
 
-    if march_group not in (1, 2) or (
-            march_group == 2 and march_variant not in ("nb5w", "nb5wp")):
-        raise NotImplementedError(
-            f"march group {march_group} variant {march_variant!r} is not "
-            "ported (ROADMAP Queue 1 item 8)")
     dz = min_corner_dz(poses, intrinsics, H, W)
     k2 = k2_override
     if not k2:
@@ -620,19 +866,34 @@ def resolve_march_plan(settings, z_lo, z_hi, poses, intrinsics, H: int,
         else:
             log(f"[INFO] adaptive window candidates: K2={k2} "
                 f"(grid {settings.grid_size}, dt {settings.dt:.4f})")
-    if march_group == 2:
+    if march_group in (2, 3):
         t_max = float(np.linalg.norm(np.asarray(poses)[:, :3, 3],
                                      axis=1).max()
                       ) + math.sqrt(3.0) * settings.bound
-        drift = nb_block_drift_cells(settings.dt, settings.bound,
-                                     settings.grid_size,
-                                     min(intrinsics[0], intrinsics[1]),
-                                     t_max, dz)
-        if drift > 2.0:
-            log(f"[INFO] block-shared march drift {drift:.2f} cells "
-                "exceeds the ±2 envelope for this camera/grid — using "
-                "the per-ray exact neighborhood march")
-            march_group = 1
+        geo = (settings.dt, settings.bound, settings.grid_size,
+               min(intrinsics[0], intrinsics[1]), t_max, dz)
+        if march_group == 3:
+            drift3 = nb_block3_drift_cells(*geo)
+            if drift3 > 1.0:
+                log(f"[INFO] block-lattice march drift {drift3:.2f} cells "
+                    "exceeds the ±1 envelope for this camera/grid — using "
+                    "the ±2 block-shared march")
+                march_group = 2
+        if march_group == 2 and march_variant in QUAD_VARIANTS:
+            fwd, back = nb_blockq_drift_cells(*geo)
+            if fwd > 2.0 or back > 1.0:
+                log(f"[INFO] quadrant march drift ({fwd:.2f} fwd, "
+                    f"{back:.2f} back) exceeds the signed window for this "
+                    "camera/grid — using the symmetric ±2 block-shared "
+                    "march")
+                march_variant = "nb5w"
+        if march_group == 2:
+            drift = nb_block_drift_cells(*geo)
+            if drift > 2.0:
+                log(f"[INFO] block-shared march drift {drift:.2f} cells "
+                    "exceeds the ±2 envelope for this camera/grid — using "
+                    "the per-ray exact neighborhood march")
+                march_group = 1
     return k2, march_group, march_variant
 
 

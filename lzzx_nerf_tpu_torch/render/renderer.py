@@ -23,10 +23,13 @@ import torch
 from ..ops.composite import (composite_rays, cumprod_scan, cumprod_seq,
                              exclusive_cumprod)
 from ..ops.march import MarchResult, march_rays_uniform
-from ..ops.march2 import (InferenceTables, block_view, column_intervals,
-                          compact_rays, default_window_candidates,
-                          march_rays_window, march_rays_window_bitmask_nb,
+from ..ops.march2 import (BLOCK_VARIANTS, InferenceTables,
+                          block_view, column_intervals, compact_rays,
+                          default_window_candidates, march_rays_window,
+                          march_rays_window_bitmask,
+                          march_rays_window_bitmask_nb,
                           march_rays_window_bitmask_nb_block,
+                          march_rays_window_bitmask_nb_block3,
                           prepass_block_hits, prepass_block_spans,
                           ray_windows)
 from ..ops.ray import near_far_from_aabb
@@ -94,12 +97,20 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
                            m, rd: torch.Tensor, B: int, S: int,
                            stage_split: int, stage2_budget: int,
-                           full: bool = False):
+                           full: bool = False, sample_budget: int = 0):
     """Two-stage field eval with exact early termination: samples
     [0, split) for all B rays, then [split, S) only for rays still
     transmissive (T >= T_thresh), compacted into `stage2_budget` slots;
     survivors beyond the slots end at the split. Returns (image_premult
-    [B, 3], weights_sum [B], n_stage2).
+    [B, 3], weights_sum [B], n_stage2, n_spts).
+
+    sample_budget > 0: stage-1 sample compaction. Only the marched
+    samples of the first split (the march mask) reach the field eval,
+    compacted into sample_budget slots, and the results scatter back to
+    their lattice slots; a masked-off sample adds nothing to the composite
+    either way, so this is exact while the marched samples fit. Samples
+    beyond the slots compose as empty space; n_spts reports the demand
+    (None without compaction).
 
     full=True is the training twin (the JAX package's
     _staged_train_eval_composite): field_apply returns FieldOutputs, and
@@ -112,9 +123,10 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
     gradient, cumprod_seq otherwise)."""
     S1, S2 = stage_split, S - stage_split
     thr = settings.T_thresh
+    if full and sample_budget:
+        raise ValueError("sample compaction is a serving eval (full=False)")
 
-    def stage(pts, dirs, n, s, deltas, mask, ts, T0=None):
-        out = field_apply(pts, dirs)
+    def stage(out, n, s, deltas, mask, ts, T0=None):
         sigma, color = (out.sigma, out.color) if full else out
         sig = (sigma * settings.density_scale).reshape(n, s)
         alpha = (1.0 - torch.exp(-sig * deltas)) * mask
@@ -136,13 +148,27 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
         # the inclusive product's last column: T after the stage
         return sums, P[:, -1]
 
-    sums, T_end = stage(m.xyzs[:, :S1].reshape(B * S1, 3),
-                        _repeat_rows(rd, S1), B, S1, m.deltas[:, :S1],
-                        m.mask[:, :S1], m.ts[:, :S1] if full else None)
+    pts1 = m.xyzs[:, :S1].reshape(B * S1, 3)
+    n_spts = None
+    if sample_budget > 0:
+        cp = compact_rays(m.mask[:, :S1].reshape(B * S1), sample_budget)
+        n_spts = cp.n_active
+        src = cp.ray_idx                                  # flat sample index
+        sig_c, rgb_c = field_apply(pts1.index_select(0, src),
+                                   rd.index_select(0, src // S1))
+        out1 = (_set_rows(sig_c.new_zeros(B * S1), src, cp.slot_valid,
+                          sig_c),
+                _set_rows(rgb_c.new_zeros((B * S1, 3)), src, cp.slot_valid,
+                          rgb_c))
+    else:
+        out1 = field_apply(pts1, _repeat_rows(rd, S1))
+    sums, T_end = stage(out1, B, S1, m.deltas[:, :S1], m.mask[:, :S1],
+                        m.ts[:, :S1] if full else None)
+    zero = torch.zeros((), dtype=torch.int64, device=T_end.device)
+    tail = () if full else (n_spts,)
     if S2 == 0:
         # the split clamped to S: stage 2 is empty (no survivor)
-        return (*sums, torch.zeros((), dtype=torch.int64,
-                                   device=T_end.device))
+        return (*sums, zero, *tail)
     surv = (T_end >= thr) & m.mask[:, S1:].any(dim=-1)
     cs2 = compact_rays(surv, stage2_budget)
     idx2 = cs2.ray_idx
@@ -151,13 +177,13 @@ def _staged_eval_composite(field_apply: FieldApply, settings: RenderSettings,
         return a[:, S1:].index_select(0, idx2)
 
     T0 = T_end.index_select(0, idx2) * cs2.slot_valid
-    sums2, _ = stage(take(m.xyzs).reshape(stage2_budget * S2, 3),
-                     _repeat_rows(rd.index_select(0, idx2), S2),
-                     stage2_budget, S2, take(m.deltas),
+    out2 = field_apply(take(m.xyzs).reshape(stage2_budget * S2, 3),
+                       _repeat_rows(rd.index_select(0, idx2), S2))
+    sums2, _ = stage(out2, stage2_budget, S2, take(m.deltas),
                      take(m.mask) & cs2.slot_valid[:, None],
                      take(m.ts) if full else None, T0)
     return (*(_scatter_add_rows(a, idx2, cs2.slot_valid, b)
-              for a, b in zip(sums, sums2)), cs2.n_active)
+              for a, b in zip(sums, sums2)), cs2.n_active, *tail)
 
 
 def _single_pass_composite(field_apply: FieldApply, settings: RenderSettings,
@@ -336,6 +362,7 @@ def render_rays_compact(
     stage_split: int = 0,
     stage2_budget: int = 0,
     aabb: Optional[torch.Tensor] = None,
+    sample_budget: int = 0,
 ) -> Dict[str, Any]:
     """The per-ray compact render (cascade 1): per-ray windows over the
     column intervals, the first `budget` active rays compacted into
@@ -347,7 +374,8 @@ def render_rays_compact(
     minimal: image, weights_sum, n_active and n_winmax only, with
     field_apply(pts, dirs) -> (sigma, color); with stage_split > 0 (the
     split clamped to S) the staged eval (_staged_eval_composite, with
-    n_stage2), else the single-pass composite. minimal=False: also depth,
+    n_stage2; sample_budget > 0 adds the stage-1 sample compaction and
+    n_spts), else the single-pass composite. minimal=False: also depth,
     ambient_aud, ambient_eye, uncertainty, with field_apply returning
     FieldOutputs (field_outputs wraps a serving field)."""
     if settings.cascade != 1:
@@ -388,9 +416,12 @@ def render_rays_compact(
         out: Dict[str, Any] = {"n_active": cs.n_active, "n_winmax": n_winmax}
         if stage_split > 0:
             b2 = effective_infer_stage2_budget(budget, stage2_budget)
-            image_c, wsum_c, out["n_stage2"] = _staged_eval_composite(
-                field_apply, settings, m, rd, budget, S,
-                min(stage_split, S), b2)
+            image_c, wsum_c, out["n_stage2"], n_spts = \
+                _staged_eval_composite(field_apply, settings, m, rd, budget,
+                                       S, min(stage_split, S), b2,
+                                       sample_budget=sample_budget)
+            if n_spts is not None:
+                out["n_spts"] = n_spts
         else:
             image_c, wsum_c = _single_pass_composite(field_apply, settings,
                                                      m, rd, budget, S)
@@ -435,27 +466,39 @@ def render_rays_compact_blocks(
     eval_budget: int = 0,
     march_bucket: Optional[tuple] = None,
     aabb: Optional[torch.Tensor] = None,
+    march_prepass: bool = True,
 ) -> Dict[str, Any]:
     """Serving fast path with 2x2-pixel-block window analysis, the
-    occupancy prepass (on with the group-2 march: the JAX package's
-    march_prepass=True), compaction into the ray budget, the group-2 block
-    march (variant nb5wp = the CUDA select kernel, nb5w = its plain
-    version) or, with march_group=1, the per-ray exact neighbourhood march
-    (no prepass; tables.col_nbmask), the post-march eval re-compaction and
-    the staged eval (stage_split > 0, clamped to S) or the single-pass
-    composite (stage_split=0).
+    occupancy prepass (march_prepass, with the group-2 march only: its
+    envelope is the block-shared march's), compaction into the ray
+    budget, the march of march_group:
+    - 2: the block-shared exact march over tables.col_nb5wmask, in
+      variant march_variant (nb5wp = the CUDA select kernel; nb5w and
+      the JAX package's other variants of the same samples,
+      ops/march2.BLOCK_VARIANTS, = its plain version);
+    - 3: the block-lattice 3x3 march (tables.col_nbmask);
+    - 1: the per-ray exact neighbourhood march (tables.col_nbmask);
+    - negative: the dilated single-column march with group |march_group|
+      (tables.col_bitmask);
+    then the post-march eval re-compaction and the staged eval
+    (stage_split > 0, clamped to S) or the single-pass composite
+    (stage_split=0).
 
-    march_bucket = (K2s, short_budget): the short/long bucket march. Each
-    block's window is tightened to its prepass span (a shift by whole
-    candidate groups, so every sample keeps its lattice position); blocks
-    whose span needs at most K2s candidates march in a short bucket of
-    short_budget rays at K2s, the rest (and shorts beyond short_budget,
-    which spill) in a long bucket of budget - short_budget rays at K2.
+    march_bucket = (K2s, short_budget): the short/long bucket march (the
+    group-2 march with the prepass only: its split comes from the prepass
+    spans). Each block's window is tightened to its prepass span (a shift
+    by whole candidate groups, so every sample keeps its lattice position
+    in real arithmetic; in float32 a sample's depth can move by an ulp,
+    as in the JAX package); blocks whose span needs at most K2s
+    candidates march in a short bucket of short_budget rays at K2s, the
+    rest (and shorts beyond short_budget, which spill) in a long bucket
+    of budget - short_budget rays at K2.
 
     eval_budget (rays, < budget to take effect): after the march, only
     blocks with at least one sample go on to the field eval, compacted
     into eval_budget // 4 blocks; a block with no sample composes to
-    background either way.
+    background either way. sample_budget > 0 (with the staged eval): the
+    stage-1 sample compaction (_staged_eval_composite).
 
     aabb: settings.aabb as a [6] float32 tensor on the rays' device, made
     here when not given (a caller that records the frame into a CUDA
@@ -465,25 +508,22 @@ def render_rays_compact_blocks(
     Returns image [H*W, 3], weights_sum, and the diagnostics n_active
     (admitted rays, may exceed the budget), n_winmax (largest candidate
     count an active block window needs), with the staged eval n_stage2,
-    with a bucket n_short
-    (short demand) and n_long (long-bucket rays, spilled shorts included),
-    with the re-compaction n_real (rays of real blocks); and, in slot
-    order, march_mask / march_ts (the marched samples as they reach the
-    eval) with slot_block / slot_valid (each slot's block index).
-
-    Not ported yet, and refused rather than ignored: stage-1 sample
-    compaction (sample_budget) and march groups other than 1 and 2
-    (ROADMAP Queue 1 item 8)."""
-    if sample_budget:
-        raise NotImplementedError("sample_budget (stage-1 sample "
-                                  "compaction) is not ported yet (ROADMAP "
-                                  "Queue 1 item 8)")
-    if march_group not in (1, 2):
-        raise NotImplementedError(f"march group {march_group} is not ported "
-                                  "(ROADMAP Queue 1 item 8)")
-    if march_bucket is not None and march_group != 2:
-        raise ValueError("march_bucket requires the group-2 march (its "
-                         "split comes from the prepass spans)")
+    with a bucket n_short (short demand) and n_long (long-bucket rays,
+    spilled shorts included), with the re-compaction n_real (rays of real
+    blocks), with the sample compaction n_spts (marched stage-1 samples);
+    and, in slot order, march_mask / march_ts (the marched samples as they
+    reach the eval) with slot_block / slot_valid (each slot's block
+    index)."""
+    prepass = march_prepass and march_group == 2
+    if march_bucket is not None and not prepass:
+        raise ValueError("march_bucket requires march_prepass and the "
+                         "group-2 march (its split comes from the prepass "
+                         "spans)")
+    if march_group == 2 and march_variant not in BLOCK_VARIANTS:
+        raise ValueError(f"unknown nb-block select variant {march_variant!r}")
+    if march_group == 0:
+        raise ValueError("march group 0: use 1, 2, 3 or a negative dilated "
+                         "group")
     if settings.cascade != 1:
         raise ValueError("the compact path supports cascade == 1 only")
     if H % 2 or W % 2 or budget % 4:
@@ -519,12 +559,11 @@ def render_rays_compact_blocks(
             o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
             settings.bound, dt, K2)
         active = win.active & hit
-    elif march_group == 2:
+    elif prepass:
         active = win.active & prepass_block_hits(
             o_center, d_center, win.t_start, win.t_end, tables.col_dilwords,
             settings.bound, dt, K2)
     else:
-        # the prepass's envelope is the block-shared march's
         active = win.active
     steps = torch.ceil((win.t_end - win.t_start) / dt)
     n_winmax = torch.where(win.active, steps,
@@ -558,14 +597,22 @@ def render_rays_compact_blocks(
         k0 = torch.ceil(torch.clamp(t_start - nears_r, min=0.0) / dt - 1e-4)
         t_start = nears_r + k0 * dt
         t_end = torch.minimum(fars_r, t1b)
+        if march_group == 3:
+            return rd_, march_rays_window_bitmask_nb_block3(
+                ro, rd_, nears_r, t_end, sv, t0_blk, dc, tables.col_nbmask,
+                settings.bound, dt, k2, S)
+        if march_group == 2:
+            return rd_, march_rays_window_bitmask_nb_block(
+                ro.contiguous(), rd_, t_start, t_end, sv, t0_blk, dc,
+                tables.col_nb5wmask, settings.bound, dt, k2,
+                S, variant=march_variant)
         if march_group == 1:
             return rd_, march_rays_window_bitmask_nb(
                 ro, rd_, t_start, t_end, sv, tables.col_nbmask,
                 settings.bound, dt, k2, S)
-        return rd_, march_rays_window_bitmask_nb_block(
-            ro.contiguous(), rd_, t_start, t_end, sv, t0_blk, dc,
-            tables.col_nb5wmask, settings.bound, dt, k2, S,
-            variant=march_variant)
+        return rd_, march_rays_window_bitmask(
+            ro, rd_, t_start, t_end, sv, tables.col_bitmask, settings.bound,
+            dt, k2, S, group=-march_group)
 
     diag: Dict[str, Any] = {}
     if march_bucket is not None:
@@ -618,8 +665,11 @@ def render_rays_compact_blocks(
     if stage_split > 0:
         # the stage-2 slots follow the ray budget, as in the JAX package
         b2 = effective_infer_stage2_budget(budget, stage2_budget)
-        image_c, wsum_c, diag["n_stage2"] = _staged_eval_composite(
-            field_apply, settings, m, rd, B, S, min(stage_split, S), b2)
+        image_c, wsum_c, diag["n_stage2"], n_spts = _staged_eval_composite(
+            field_apply, settings, m, rd, B, S, min(stage_split, S), b2,
+            sample_budget=sample_budget)
+        if n_spts is not None:
+            diag["n_spts"] = n_spts
     else:
         image_c, wsum_c = _single_pass_composite(field_apply, settings, m,
                                                  rd, B, S)

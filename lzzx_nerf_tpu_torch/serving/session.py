@@ -13,22 +13,24 @@ Two sessions run one chunk program (_Session):
   sink) stream frames into a FrameSink (serving/streaming.py).
 
 What both share: the trained state on one device (the EMA head with its
-bf16 tables, or a hash head, which has none; the torso with its f32 table
-when the state has one, or a tiled torso; the occupancy tables), the
-frame (audio encode with the smooth-lips EMA in its masked form, so a
-chunk has no Python branch; rays; the torso pass
-or the plain background; render_rays_compact_blocks: nb5wp march with
-the prepass, the bucket march, the eval re-compaction, the staged eval;
-yuv420p or rgb24 bytes), the chunk program (static input buffers to
-static output buffers; on a GPU captured once per plan as a CUDA graph
-and replayed), the chunk loop (inputs staged in pinned host buffers,
-frames and counters copied back on a side stream and read one chunk
-behind the dispatch, strictly in order), and the rebuild escapes of the
-JAX session: when a chunk's counters show that a frame needed more than
-the plan holds (admitted rays > ray budget, a window > K2, real rays >
-eval budget, long-bucket rays > long budget), the session warns, streams
-the chunk as rendered and rebuilds the plan (and captures the graph
-again) at the next chunk boundary.
+bf16 tables, float32 under infer_table_bf16 off, or a hash head, which
+has none; the torso with its f32 table when the state has one, or a
+tiled torso; the occupancy tables the plan needs), the frame (audio
+encode with the smooth-lips EMA in its masked form, so a chunk has no
+Python branch; rays; the torso pass or the plain background;
+render_rays_compact_blocks: the nb5wp march (whatever group-2 variant
+the plan names, or the plan's other group) with the prepass, the bucket march, the eval re-compaction,
+the staged eval with its optional stage-1 sample compaction; yuv420p or
+rgb24 bytes), the chunk program (static input buffers to static output
+buffers; on a GPU captured once per plan as a CUDA graph and replayed),
+the chunk loop (inputs staged in pinned host buffers, frames and
+counters copied back on a side stream and read one chunk behind the
+dispatch, strictly in order), and the rebuild escapes of the JAX
+session: when a chunk's counters show that a frame needed more than the
+plan holds (admitted rays > ray budget, a window > K2, real rays > eval
+budget, long-bucket rays > long budget, marched stage-1 samples > sample
+budget), the session warns, streams the chunk as rendered and rebuilds
+the plan (and captures the graph again) at the next chunk boundary.
 
 Frame-parallel serving (InferenceSession, infer_data_parallel >= 2 over
 two or more devices; the JAX session's make_render_dp): the chunk's
@@ -89,7 +91,7 @@ STAGE_SPLIT = 8
 STAGE2_FRAC = 0.375
 # per-frame counters, in the order of a chunk's counter rows
 COUNTERS = ("n_active", "n_winmax", "n_stage2", "n_real", "n_short",
-            "n_long")
+            "n_long", "n_spts")
 # chunks in flight: a chunk's frames are fetched when the next one has
 # been dispatched
 PIPELINE = 2
@@ -114,20 +116,31 @@ class _Session:
     # "full" (render_rays: cascade > 1)
     path = "blocks"
     march_group = 2
+    # the block march's variant as the plan names it (each marches as
+    # nb5w/nb5wp: _variant), the occupancy prepass, and the stage-1 sample
+    # budget (0: no sample compaction)
+    march_variant = "nb5w"
+    use_prepass = True
+    sample_budget = 0
+    _sample_cap = 0
     train_camera = False
 
     def _load(self, st: dict, device: torch.device, settings: RenderSettings,
               H: int, W: int, intrinsics, poses, bg: np.ndarray, chunk: int,
               att: int = 2, log=print,
-              variants: tuple = ("nb5w", "dil")) -> None:
+              variants: tuple = ("nb5w", "dil"),
+              table_dtype: torch.dtype = torch.bfloat16) -> None:
         """Put the state `st` (load_trained_state's dict) on `device` for
         H x W frames at `poses` [P, 4, 4] over the background `bg`
-        [H, W, 3]: the head (EMA weights, bf16 tables of a dense head; a
-        hash head has none), the torso when the state has one (f32 table
-        of a dense torso; a tiled torso has none; the frame-invariant
-        torso plan), the occupancy and its tables. Each field's encoder
-        is the one its tree holds (state_io.head_encoder,
-        torso_encoder)."""
+        [H, W, 3]: the head (EMA weights, tables of a dense head in
+        table_dtype: bf16 feeds the field kernel's triplane entry, float32
+        its enc_x entry; a hash head has none), the torso when the state
+        has one (f32 table of a dense torso; a tiled torso has none; the
+        frame-invariant torso plan), the occupancy and its tables. Each
+        field's encoder is the one its tree holds (state_io.head_encoder,
+        torso_encoder), and so are its branches: the eye net (absent from
+        a field trained without exp_eye) and the label embedding (emb,
+        whose width is the audio net's input)."""
         self.device = dev = device
         self.log = log
         self.settings = settings
@@ -148,20 +161,23 @@ class _Session:
         head = st["head"]
         codes = head.get("individual_codes")
         cam = head.get("camera_dR")
+        emb = head.get("embedding")
         self.field = NeRFField(
             bound=settings.bound,
-            audio_in_dim=int(st["meta"]["audio_dim"]), att=att,
+            audio_in_dim=(int(st["meta"]["audio_dim"]) if emb is None
+                          else int(np.shape(emb["embedding"])[0])), att=att,
             ind_dim=0 if codes is None else int(np.shape(codes)[1]),
             ind_num=1 if codes is None else int(np.shape(codes)[0]),
             camera_frames=0 if cam is None else int(np.shape(cam)[0]),
-            encoder=head_encoder(head))
+            encoder=head_encoder(head), exp_eye="eye_att_net" in head,
+            emb=emb is not None)
         self.field.load_state_dict(params_from_jax(head))
         self.field.to(dev).eval()
         self.ind_code = (None if codes is None
                          else self.field.individual_codes[0].detach())
-        # bf16 head tables, baked in f32 and cast once (serving default;
-        # {} for a hash head)
-        self.packed = self.field.bake_tables(torch.bfloat16)
+        # head tables, baked in f32 and cast once (bf16 is the serving
+        # default; {} for a hash head)
+        self.packed = self.field.bake_tables(table_dtype)
 
         frame = H * W
         self.bg = torch.as_tensor(
@@ -298,16 +314,18 @@ class _Session:
                 window_candidates=self.k2, stage_split=self.stage_split,
                 stage2_budget=self.stage2_budget,
                 march_group=self.march_group,
-                march_variant="nb5wp" if use_kernels else "nb5w",
+                march_variant=_variant(use_kernels),
                 eval_budget=self.eval_budget, march_bucket=self.bucket,
-                aabb=self.aabb)
+                aabb=self.aabb, march_prepass=self.use_prepass,
+                sample_budget=self.sample_budget)
         elif self.path == "compact":
             out = render_rays_compact(
                 apply, self.settings, origin.expand(rays_d.shape), rays_d,
                 frame_bg, budget=self.budget, tables=self.tables,
                 window_candidates=self.k2, minimal=True,
                 stage_split=self.stage_split,
-                stage2_budget=self.stage2_budget, aabb=self.aabb)
+                stage2_budget=self.stage2_budget, aabb=self.aabb,
+                sample_budget=self.sample_budget)
         else:
             out = render_rays(field_outputs(apply), self.settings, self.occ,
                               origin.expand(rays_d.shape), rays_d, frame_bg,
@@ -494,7 +512,8 @@ class _Session:
             queue.append((base, count, slot, done, dict(
                 k2=self.k2, bucket=self.bucket, long_budget=self.long_budget,
                 eval_budget=self.eval_budget,
-                stage2_budget=self.stage2_budget)))
+                stage2_budget=self.stage2_budget,
+                sample_budget=self.sample_budget)))
             if len(queue) >= PIPELINE:
                 with ph("fetch+sink"):
                     self._consume(queue.popleft(), emit)
@@ -568,6 +587,17 @@ class _Session:
                 self._want("stage2", want)
             else:
                 self.log(msg)
+        if plan["sample_budget"] and c["n_spts"] > plan["sample_budget"]:
+            # marched stage-1 samples beyond the slots composed as empty
+            # space
+            want = min(self._sample_cap,
+                       max(gran, _ceil_to(c["n_spts"] * 1.25, gran)))
+            if want > self.sample_budget:
+                self.log(f"[WARN] frames {base}..{last}: {c['n_spts']} "
+                         f"marched stage-1 points exceed the sample budget "
+                         f"{plan['sample_budget']}; rebuilding with {want} "
+                         "at the next chunk boundary")
+                self._want("sample", want)
         if plan["eval_budget"] and c["n_real"] > plan["eval_budget"]:
             want = min(self.budget,
                        max(gran, _ceil_to(c["n_real"] * 1.25, gran)))
@@ -594,7 +624,8 @@ class _Session:
         p = self._pending
         return (p.get("budget", 0) > self.budget or p.get("k2", 0) > self.k2
                 or p.get("eval", 0) > self.eval_budget
-                or p.get("stage2", 0) > self.stage2_budget)
+                or p.get("stage2", 0) > self.stage2_budget
+                or p.get("sample", 0) > self.sample_budget)
 
     def rebuild_pending(self) -> bool:
         """True when the last chunk rendered asks for a rebuild, which the
@@ -612,6 +643,8 @@ class _Session:
             self._eval_override = p["eval"]
         if p.get("stage2", 0) > self.stage2_budget:
             self._stage2_override = p["stage2"]
+        if p.get("sample", 0) > self.sample_budget:
+            self._sample_override = p["sample"]
         self._pending = {}
         self.rebuilds += 1
         self.log("rebuild at a chunk boundary")
@@ -628,8 +661,22 @@ class _Session:
             f"plan: K2={self.k2} K2s={b[0] if b else 0} "
             f"budget={self.budget} short_budget={b[1] if b else 0} "
             f"long_budget={self.long_budget} eval_budget={self.eval_budget} "
-            f"stage2_budget={self.stage2_budget} ({detail}; "
+            f"stage2_budget={self.stage2_budget} "
+            f"sample_budget={self.sample_budget} ({detail}; "
             f"{self.build_seconds:.1f} s)")
+
+
+def _variant(use_kernels: bool) -> str:
+    """The block march variant a frame runs, whatever variant the plan
+    names (every one keeps nb5w's samples): nb5w's select as the CUDA
+    kernel (nb5wp) or its plain version."""
+    return "nb5wp" if use_kernels else "nb5w"
+
+
+def _sample_cap(budget: int, stage_split: int, max_steps: int) -> int:
+    """The stage-1 lattice's slots: the ray budget x the split clamped to
+    the samples per ray (the renderer's clamp)."""
+    return budget * max(1, min(stage_split, max_steps))
 
 
 def _on(device: torch.device):
@@ -737,14 +784,18 @@ class ServingSession(_Session):
     eval_budget: start from these instead of the measured values (the
     escapes grow them as they would grow measured ones); stage2_budget:
     start from this stage-2 budget (at most the ray budget) instead of
-    0.375 of the ray budget."""
+    0.375 of the ray budget; sample_budget: the stage-1 sample compaction
+    from this many sample slots (at most the stage-1 lattice; 0, the
+    default, evaluates the whole lattice), grown by the escape like the
+    other budgets."""
 
     def __init__(self, state_path: str, device=None,
                  poses: Optional[np.ndarray] = None, res: Optional[int] = None,
                  chunk: int = 8, log=print,
                  march_bucket: Union[bool, tuple] = True,
                  eval_recompact: bool = True, budget: int = 0, k2: int = 0,
-                 eval_budget: int = 0, stage2_budget: int = 0):
+                 eval_budget: int = 0, stage2_budget: int = 0,
+                 sample_budget: int = 0):
         t_build = time.perf_counter()
         st = load_trained_state(state_path)
         meta = self.meta = st["meta"]
@@ -767,6 +818,8 @@ class ServingSession(_Session):
         self._k2_override = k2
         self._eval_override = eval_budget
         self._stage2_override = stage2_budget
+        self._sample_start = sample_budget
+        self._sample_override = 0
         self._measured: Dict[int, dict] = {}
         self.k2_measured = 0
         if not k2:
@@ -870,6 +923,10 @@ class ServingSession(_Session):
         self.stage2_budget = (
             min(self._stage2_override, budget) if self._stage2_override
             else max(1024, int(budget * STAGE2_FRAC) // 1024 * 1024))
+        self._sample_cap = _sample_cap(budget, self.stage_split,
+                                       self.settings.max_steps)
+        self.sample_budget = min(self._sample_cap, self._sample_override
+                                 or self._sample_start)
         self._plan_line(t0, f"prepass admits up to {m['n_adm']} rays, "
                         f"host-measured real rays up to {m['n_real']}, over "
                         f"{len(self.poses)} poses")
@@ -935,28 +992,6 @@ def _adopt_trained_config(cfg: Config, workspace: str) -> Config:
         return cfg
 
 
-def unported_plan(cfg: Config) -> List[str]:
-    """What in cfg asks for a serving path the port does not have, each
-    with the ROADMAP item that ports it (empty: the port serves cfg)."""
-    q1 = "ROADMAP Queue 1 item"
-    checks = (
-        (cfg.infer_march_group not in (1, 2), f"infer_march_group "
-         f"{cfg.infer_march_group} (group 3 and the dilated modes): {q1} 8"),
-        (cfg.infer_sample_frac > 0, "infer_sample_frac > 0 (stage-1 sample "
-         f"compaction): {q1} 8"),
-        (cfg.infer_march_variant != "nb5w", f"infer_march_variant "
-         f"{cfg.infer_march_variant!r}: {q1} 8"),
-        (not cfg.infer_march_prepass, "infer_march_prepass off (the block "
-         f"march without the prepass): {q1} 8"),
-        (not cfg.infer_table_bf16, "infer_table_bf16 off (f32 tables; the "
-         f"field kernel reads bf16): {q1} 8"),
-        (cfg.emb, f"emb (label audio features): {q1} 8"),
-        (not cfg.exp_eye, f"exp_eye off (a field without the eye branch): "
-         f"{q1} 8"),
-    )
-    return [msg for bad, msg in checks if bad]
-
-
 class InferenceSession(_Session):
     """Load once per identity; feed audio features; stream frames (the
     JAX InferenceSession's API and semantics).
@@ -1011,19 +1046,23 @@ class InferenceSession(_Session):
         session's: the 2x2-block path, the per-ray compact render for odd
         frame sides or infer_block 1, the exhaustive marcher at cascade >
         1; the block march steps down to the per-ray march outside its
-        drift envelope. Raises when the Config asks for a path the port
-        does not have, when the state's grid or head encoder is not the
-        Config's, or when there is no state."""
+        drift envelope, the block-lattice group 3 to the block march and
+        the quadrant variants to nb5w outside theirs (resolve_march_plan).
+        The Config's alternates are the JAX session's: infer_march_group
+        and infer_march_variant, infer_march_prepass, infer_table_bf16
+        (False: float32 head tables, looked up in plain PyTorch ahead of
+        the field kernel's enc_x entry), infer_sample_frac (the stage-1
+        sample compaction, with its escape). A state without the eye
+        branch serves with eye value 0 through zero eye weights; a state
+        with a label embedding reads label features. Raises when the
+        state's grid or head encoder is not the Config's, or when there
+        is no state."""
         from ..data.provider import NeRFDataset
 
         t0 = time.perf_counter()
         self._built = False
         cfg = _adopt_trained_config(
             self.cfg.replace(path=data_path, workspace=workspace), workspace)
-        bad = unported_plan(cfg)
-        if bad:
-            raise NotImplementedError("the port has no serving path for: "
-                                      + "; ".join(bad))
         st = load_workspace_state(workspace, use_ema=cfg.use_ema)
         if st is None:
             raise FileNotFoundError(
@@ -1040,7 +1079,7 @@ class InferenceSession(_Session):
                              f" head, the Config encoder {cfg.encoder!r}")
         ds = NeRFDataset(cfg, type="train")
         ds.training = False
-        if (ds.aud_features is not None
+        if (ds.aud_features is not None and "embedding" not in st["head"]
                 and ds.aud_features.shape[-1] != int(meta["audio_dim"])):
             raise ValueError(f"audio features of width "
                              f"{ds.aud_features.shape[-1]} under {data_path}, "
@@ -1061,12 +1100,15 @@ class InferenceSession(_Session):
         self._n_dp = len(dp_devices)
         self._load(st, self.device, settings, ds.H, ds.W, ds.intrinsics,
                    ds.poses, ds.bg_img, self._chunk_size(), att=cfg.att,
-                   log=self.log, variants=())
+                   log=self.log, variants=(),
+                   table_dtype=(torch.bfloat16 if cfg.infer_table_bf16
+                                else torch.float32))
         self.train_camera = bool(cfg.train_camera
                                  and hasattr(self.field, "camera_dT"))
         self.stage_split = cfg.infer_stage_split
         self._budget_override = self._k2_override = 0
         self._eval_override = self._stage2_override = 0
+        self._sample_override = 0
         self._bucket_plan = None
         self._carry = False
         self.resumed = True
@@ -1092,6 +1134,7 @@ class InferenceSession(_Session):
             measure=(("block" if use_blocks else "ray") if use_compact
                      else None), log=self.log)
         self.march_group = group
+        self.march_variant = variant
         self.use_prepass = (use_blocks and group == 2
                             and cfg.infer_march_prepass)
         self.march_plan = (group, variant, self.use_prepass)
@@ -1166,6 +1209,16 @@ class InferenceSession(_Session):
         self.stage2_budget = (
             min(self._stage2_override, budget) if self._stage2_override
             else max(1024, int(budget * cfg.infer_stage2_frac) // 1024 * 1024))
+        # stage-1 sample compaction: slots for the marched samples of the
+        # stage-1 lattice only (capped at the lattice, where it is a no-op
+        # but still exact)
+        self._sample_cap = _sample_cap(budget, self.stage_split, s.max_steps)
+        sample_budget = 0
+        if cfg.infer_sample_frac > 0 and self.stage_split > 0:
+            sample_budget = min(self._sample_cap, self._sample_override or max(
+                gran, int(self._sample_cap * cfg.infer_sample_frac)
+                // gran * gran))
+        self.sample_budget = sample_budget
         self._plan_line(t0, f"{self.path} path, march group "
                         f"{self.march_group}, from the Config over "
                         f"{len(self.poses)} poses")
@@ -1235,7 +1288,12 @@ class InferenceSession(_Session):
 
         def frame_inputs(i):
             fi = ds.mirror_index(i)
-            eye = cfg.fix_eye if cfg.fix_eye >= 0 else ds.eye_area[fi]
+            if not cfg.exp_eye:
+                eye = 0.0
+            elif cfg.fix_eye >= 0:
+                eye = cfg.fix_eye
+            else:
+                eye = ds.eye_area[fi]
             return fi, eye, ds.audio_window(i)
 
         def emit(base, count, bufs, cnt):

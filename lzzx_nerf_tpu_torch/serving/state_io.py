@@ -142,8 +142,11 @@ def params_from_jax(tree: Dict[str, Any], prefix: str = ""
     """Flax params tree (nested dicts of arrays) -> state_dict of the
     port's modules. Dense kernels [in, out] become Linear weights
     [out, in]; Conv kernels [k, in, out] become Conv1d weights
-    [out, in, k]; biases and raw parameters keep their layout. A top-level
-    "params" collection is unwrapped."""
+    [out, in, k]; the label embedding (flax nn.Embed's
+    embedding/embedding [V, F]) becomes embedding.weight, as it is;
+    biases and raw parameters keep their layout. A top-level "params"
+    collection is unwrapped. The tree holds what the field has: no
+    eye_att_net without the eye branch, no embedding without labels."""
     if not prefix and set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -152,7 +155,9 @@ def params_from_jax(tree: Dict[str, Any], prefix: str = ""
             out.update(params_from_jax(val, f"{prefix}{key}."))
             continue
         a = np.asarray(val, dtype=np.float32)
-        if key == "kernel":
+        if prefix == "embedding." and key == "embedding":
+            key = "weight"
+        elif key == "kernel":
             if a.ndim == 2:
                 a = a.T
             elif a.ndim == 3:
@@ -173,7 +178,9 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for name, val in state_dict.items():
         a = val.detach().to("cpu", torch.float32).numpy()
         *parents, key = name.split(".")
-        if key == "weight":
+        if name == "embedding.weight":
+            key = "embedding"
+        elif key == "weight":
             if a.ndim == 2:
                 a = a.T
             elif a.ndim == 3:

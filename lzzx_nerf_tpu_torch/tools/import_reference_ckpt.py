@@ -85,6 +85,10 @@ def main(argv=None, log=print) -> dict:
         # of its shapes (opt.txt carries them)
         n, d = sd["individual_codes"].shape
         cfg = cfg.replace(ind_num=int(n), ind_dim=int(d))
+    # the model's branches: the eye net of exp_eye, the label embedding of
+    # emb (opt.txt carries both)
+    cfg = cfg.replace(exp_eye="eye_att_net.net.0.weight" in sd,
+                      emb="embedding.weight" in sd)
     ds = NeRFDataset(cfg, type="train")
     settings, occ, field = _build_world(cfg, ds, dev)
     converted = convert_reference_state_dict(sd)

@@ -8,7 +8,8 @@ each run one.
 Groups (param_label_fn, the JAX package's rule):
   grid  (triplane tables):  lr,          weight decay 0.01
   att   (audio_att_net):    lr_net * 5,  weight decay 1e-4
-  net   (everything else):  lr_net,      weight decay 0
+  net   (everything else, the label embedding of emb included):
+                            lr_net,      weight decay 0
   camera (camera_dR/dT):    1e-5,        weight decay 0, no schedule
 All groups: b1 = 0, b2 = 0.99, eps 1e-8, decay decoupled as in
 optax.adamw, lr(count) = base * rate ** (count / iters), unclamped, with

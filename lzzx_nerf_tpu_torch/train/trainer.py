@@ -140,7 +140,7 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
                     update_extra_interval: int = 16,
                     lpips_params: Optional[Mapping[str, torch.Tensor]] = None,
                     finetune_lips: bool = False, lips_pad: int = 32,
-                    train_camera: bool = False,
+                    train_camera: bool = False, exp_eye: bool = True,
                     data_sharding: Optional[DataSharding] = None,
                     train_budget: int = 0, train_stage_split: int = 0,
                     train_stage2_budget: int = 0):
@@ -154,7 +154,8 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
     mean LPIPS of the rendered patches against the ground truth.
     finetune_lips: rays on the lips_pad² crop at batch["rect_origin"], no
     uncertainty terms, no regulariser, and 0.01 x LPIPS (lpips_params, on
-    the step's device) of the crop.
+    the step's device) of the crop. exp_eye False: the field gets no eye
+    value (its eye branch is off) and no blink jitter is drawn.
 
     data_sharding (parallel.data_sharding over a process group's mesh):
     the data-parallel step. Every rank draws the same global rays, noise
@@ -169,7 +170,8 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
     excess over its slots. num_rays must divide by the ranks.
 
     batch: image [H, W, 3], bg_color [H, W, 3], face_mask [H, W] bool,
-    pose [4, 4], auds [8, 16, C], eye [1], index (int), and for the lips
+    pose [4, 4], auds [8, 16, C] (label features [8, 16] under emb),
+    eye [1], index (int), and for the lips
     finetune rect_origin [2] int (row, col), on the step's device. draws:
     tensors that replace the generator's draws (any subset; the rest come
     from the generator), uniform in [0, 1) unless said otherwise: "inds"
@@ -249,10 +251,12 @@ def make_train_step(field: NeRFField, settings: RenderSettings, *, H: int,
         state.opt.zero_grad()
         enc_a = field.encode_audio_train(batch["auds"])
         c = field.individual_codes[batch["index"]] if ind_dim > 0 else None
-        u = _draw(dev, draws, generator, "eye_jitter",
-                  lambda g: torch.rand(batch["eye"].shape, generator=g,
-                                       device=dev))
-        eye = batch["eye"] + (u - 0.5) / 10
+        eye = None
+        if exp_eye:
+            u = _draw(dev, draws, generator, "eye_jitter",
+                      lambda g: torch.rand(batch["eye"].shape, generator=g,
+                                           device=dev))
+            eye = batch["eye"] + (u - 0.5) / 10
         tables = field.bake_train_tables()
 
         def field_fn(pts, dirs):
@@ -361,8 +365,10 @@ def _params_swapped(field: NeRFField, values: Mapping[str, torch.Tensor]):
 
 def make_eval_step(field: NeRFField, settings: RenderSettings, *, H: int,
                    W: int, intrinsics: Tuple[float, float, float, float],
-                   ind_dim: int = 4, use_ema: bool = False):
-    """Full-frame eval render (render_rays, no jitter, individual code 0):
+                   ind_dim: int = 4, exp_eye: bool = True,
+                   use_ema: bool = False):
+    """Full-frame eval render (render_rays, no jitter, individual code 0,
+    no eye value when exp_eye is False):
     eval(state, occ, batch) -> dict of [H, W(, 3)] maps and the frame's
     mse ("loss")."""
     dev = next(field.parameters()).device
@@ -376,7 +382,7 @@ def make_eval_step(field: NeRFField, settings: RenderSettings, *, H: int,
             rays = get_rays(batch["pose"][None], intrinsics, H, W)
             enc_a = field.encode_audio_train(batch["auds"])
             c = field.individual_codes[0] if ind_dim > 0 else None
-            eye = batch["eye"]
+            eye = batch["eye"] if exp_eye else None
             tables = field.bake_train_tables()
 
             def field_fn(pts, dirs):

@@ -15,6 +15,7 @@ keys and keeps every tensor's bytes:
   encoder_<plane>.embeddings [rows, 1]    encoder_<plane>
   torso_encoder.embeddings [rows, 2]      torso_encoder
   individual_codes, individual_codes_torso, anchor_points (as they are)
+  embedding.weight [V, V]                 embedding.weight (label audio, --emb)
 
 Use NeRFField(encoder="hash") and TorsoField(encoder="tiled") with
 converted checkpoints (the dense encoders have their own parameterisation
@@ -61,6 +62,7 @@ def _key_map(head: bool, att: bool) -> Dict[str, str]:
         for p in PLANES:
             out[f"encoder_{p}.embeddings"] = f"encoder_{p}"
         out["individual_codes"] = "individual_codes"
+        out["embedding.weight"] = "embedding.weight"
     else:
         for name, n in TORSO_MLPS:
             for lyr in range(n):
@@ -75,10 +77,15 @@ def _has_att(keys) -> bool:
     return any(k.startswith("audio_att_net.") for k in keys)
 
 
+# tensors a reference state dict holds only for some models: the codes,
+# the label embedding (emb) and the eye branch (exp_eye)
+_OPTIONAL = ("individual_codes", "embedding.", "eye_att_net.")
+
+
 def _convert(sd: Dict, head: bool) -> Dict[str, torch.Tensor]:
     keys = _key_map(head, _has_att(sd))
     missing = [k for k in keys if k not in sd
-               and not k.startswith("individual_codes")]
+               and not k.startswith(_OPTIONAL)]
     if missing:
         raise KeyError(f"reference state dict lacks {missing}")
     return {port: _tensor(sd[ref]) for ref, port in keys.items()
@@ -88,9 +95,12 @@ def _convert(sd: Dict, head: bool) -> Dict[str, torch.Tensor]:
 def convert_reference_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
     """The reference checkpoint's ['model'] state dict (tensors or arrays;
     keys it does not map, such as the density grid, are ignored) -> a
-    state dict of NeRFField(encoder="hash"). individual_codes and the
-    audio attention net are carried when present; any other missing
-    tensor raises KeyError."""
+    state dict of NeRFField(encoder="hash"). individual_codes, the audio
+    attention net, the label embedding (a model trained with emb) and
+    eye_att_net (absent from a model trained without exp_eye) are
+    carried when present; any other missing tensor raises KeyError. The
+    JAX package's converter requires eye_att_net and drops the
+    embedding."""
     return _convert(sd, head=True)
 
 

@@ -1,7 +1,8 @@
 """The port's CLI (lzzx_nerf_tpu_torch/cli.py) on the CPU: its flags
-against the JAX CLI's, its refusals, the ported flags (--encoder hash,
+against the JAX CLI's, the ported flags (--encoder hash,
 --train_stage_split, --data_parallel 1, --infer_data_parallel) trained,
-tested and meshed, the training run's files and step
+tested and meshed, --emb and --exp_eye 0 trained, tested and served,
+--test from float32 tables, the training run's files and step
 schedule, a resumed run against an unbroken one, the lips and torso
 stages, the workspace served by InferenceSession and the HTTP API, the
 train_camera step against JAX's, and the checkpoint carried between the
@@ -114,15 +115,53 @@ def test_flags_parse_as_the_jax_cli(argv):
     assert cli.parse_args(argv + ["--device", "cpu"])[1] == "cpu"
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--emb", "1"], "item 8"), (["--exp_eye", "0"], "item 8"),
-    (["--test", "1", "--infer_table_bf16", "0"], "item 8"),
-], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_refusals_name_their_roadmap_item(tmp_path, flag, item):
-    argv = [str(tmp_path), "--workspace", str(tmp_path / "ws"),
-            "--device", "cpu", *flag]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        cli.main(argv)
+@pytest.mark.parametrize("flag", [["--emb", "1"], ["--exp_eye", "0"]],
+                         ids=lambda v: v[0])
+def test_alternate_fields_train_test_and_serve(oracle, tmp_path, flag):
+    """The fields the CLI refused before they were ported train the head
+    (their checkpoint holds the JAX field's tree: the label embedding
+    under --emb, no eye_att_net under --exp_eye 0), render --test, and an
+    InferenceSession serves the workspace with the same flags."""
+    _, data = oracle
+    ws = str(tmp_path / "ws")
+    cli.main(_args(data, ws, "--iters", "8", *flag))
+    params = read_checkpoint(os.path.join(ws, "checkpoints"))["state"][
+        "params"]["params"]
+    assert ("embedding" in params) == ("--emb" in flag)
+    assert ("eye_att_net" in params) == ("--emb" in flag)
+    if "--emb" in flag:
+        assert params["embedding"]["embedding"].shape == (29, 29)
+    common = [data, "--workspace", ws, "--asr_model", "deepspeech",
+              "--grid_size", "32", "--device", "cpu", *flag]
+    cli.main(common + ["--test", "1", "--test_train", "1"])
+    assert len([f for f in os.listdir(os.path.join(ws, "results"))
+                if f.endswith(".png")]) == 8
+    s = InferenceSession(cli.build_config(common), device="cpu", log=_quiet)
+    s.load_model(data, ws)
+    assert s.field.emb == ("--emb" in flag)
+    got = {}
+    s.run(max_frames=2, on_frame=lambda i, b: got.__setitem__(i, b))
+    assert sorted(got) == [0, 1]
+
+
+def test_test_renders_from_f32_tables(trained, tmp_path):
+    """--test --infer_table_bf16 0 (refused before it was ported): the
+    head's tables stay float32 (the plain lookup, then the field kernel's
+    enc_x entry) and --test renders every frame. Its frames against the
+    JAX session's float32 tables: tests/test_torch_alternates.py."""
+    import shutil
+
+    ws = str(tmp_path / "ws")
+    shutil.copytree(trained["ws"], ws)
+    common = [trained["data"], "--workspace", ws, "--asr_model",
+              "deepspeech", "--grid_size", "32", "--device", "cpu",
+              "--test", "1", "--test_train", "1"]
+    cli.main(common + ["--infer_table_bf16", "0"])
+    res = os.path.join(ws, "results")
+    f32 = sorted(f for f in os.listdir(res) if f.endswith(".png"))
+    assert len(f32) == 8
+    log = open(os.path.join(ws, "log_ngp.txt")).read()
+    assert "rendered 8 frames" in log
 
 
 @pytest.mark.parametrize("flag", [

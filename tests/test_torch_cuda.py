@@ -143,6 +143,75 @@ def test_hash_head_serving_field_on_card(cuda):
         torch.testing.assert_close(k[1], ref[1], rtol=0, atol=1e-5)
 
 
+def test_f32_table_field_on_card(cuda):
+    """A dense head served from float32 tables (infer_table_bf16 off): the
+    lookup in plain PyTorch, then the enc_x entry, against the plain
+    version on the card and on the CPU; the triplane entry (bf16 tables
+    only) does not launch."""
+    from lzzx_nerf_tpu_torch.models.nerf import make_fused_apply
+
+    field, _, _ = _random_field("cpu", 21)
+    rng = np.random.default_rng(22)
+    enc_a = torch.from_numpy(rng.normal(0, 0.3, (1, 32)).astype(np.float32))
+    pts, d = _points(20000, 23, "cpu", reach=1.05)
+    outs = {}
+    for dev, kernel in ((cuda, True), (cuda, False), ("cpu", False)):
+        f = field.to(dev)
+        tables = f.bake_tables(torch.float32)
+        before = dict(kernels.launches)
+        outs[(str(dev), kernel)] = [t.cpu() for t in make_fused_apply(
+            f, tables, enc_a.to(dev), f.individual_codes[0].detach(),
+            torch.tensor([0.3], device=dev), use_kernel=kernel)(
+            pts.to(dev), d.to(dev))]
+        assert kernels.launches["fused_field_enc"] == (
+            before["fused_field_enc"] + int(kernel))
+        assert kernels.launches["fused_field"] == before["fused_field"]
+    k = outs[(str(cuda), True)]
+    for ref in (outs[(str(cuda), False)], outs[("cpu", False)]):
+        torch.testing.assert_close(k[0], ref[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(k[1], ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [127, 70001])
+def test_field_kernel_eyeless_weights(cuda, n):
+    """The triplane entry on a field without the eye branch (exp_eye off:
+    zero eye weights from extract_field_weights) against its plain
+    version, whatever the eye value."""
+    rng = np.random.default_rng(n + 30)
+    field = NeRFField(audio_in_dim=29, ind_num=8, exp_eye=False)
+    with torch.no_grad():
+        for name, p in field.named_parameters():
+            scale = 0.5 if name.startswith("encoder_") else 0.2
+            p.copy_(torch.from_numpy(
+                rng.uniform(-scale, scale, p.shape).astype(np.float32)))
+    field.to(cuda)
+    w = ff.extract_field_weights(field)
+    assert not (w.eye0.any() or w.eye1.any() or w.sig0e.any())
+    tables = field.bake_tables(torch.bfloat16)
+    pts, d = _points(n, n + 31, cuda)
+    enc_a = torch.from_numpy(rng.normal(0, 0.3, (1, 32)).astype(
+        np.float32)).to(cuda)
+    outs = []
+    for eye in (0.0, 0.7):
+        fw = ff.fold_frame_weights(w, enc_a,
+                                   field.individual_codes[0].detach(),
+                                   torch.tensor([eye], device=cuda))
+        out = ff.fused_field_cuda(pts, d, tables["xy"], tables["yz"],
+                                  tables["xz"], field.bound,
+                                  ff.pack_frame_weights(fw))
+        ref = ff.field_reference(fw, pts, d, tables, field.dense_spec,
+                                 field.bound)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(out[:, 1:], ref[:, 1:], rtol=0,
+                                   atol=1e-5)
+        outs.append(out)
+    # no eye branch: the eye value changes nothing
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
 def test_grid_encode_on_card_matches_cpu(cuda):
     """grid_encode of the tiled torso's spec on the card vs the CPU: the
     forward bit-equal, the table gradient (atomic index_add on the card)

@@ -18,8 +18,9 @@ is what the port serves. Both sessions run on the same seeded features:
   tests, held on the port);
 - a head-only state serves over the dataset's background (the trained
   state's torso: tests/test_torch_serving_api.py);
-- the plans of the fallback paths and a hash head serve; every plan the
-  port has no path for raises, naming its ROADMAP item.
+- the plans of the fallback paths and a hash head serve, and so do the
+  alternates (march groups 3 and -2, the variants, the prepass off,
+  float32 tables, sample compaction), each resolving JAX's plan.
 
 Stage-2 budget: infer_stage2_frac 1.0 at ray budgets in whole 1024-slot
 steps, so the JAX session never truncates stage 2 (where the port's
@@ -345,19 +346,32 @@ def test_ported_plans_serve(blob, blob_hash, kw, path, group):
     assert all(b.shape == (64 * 64 * 3,) for b in got.values())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(infer_march_group=3), "item 8"),
-    (dict(infer_sample_frac=0.5), "item 8"),
-    (dict(infer_march_variant="quadw"), "item 8"),
-    (dict(infer_march_prepass=False), "item 8"),
-    (dict(infer_table_bf16=False), "item 8"),
-    (dict(emb=True), "item 8"),
-    (dict(exp_eye=False), "item 8"),
-])
-def test_unported_plans_raise(blob, kw, item):
+@pytest.mark.parametrize("kw", [
+    dict(infer_march_group=3), dict(infer_march_group=-2),
+    dict(infer_sample_frac=0.5), dict(infer_march_variant="quadw"),
+    dict(infer_march_variant="quadwx"), dict(infer_march_variant="zband4"),
+    dict(infer_march_prepass=False), dict(infer_table_bf16=False),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_alternate_plans_serve_as_jax_plans(blob, kw):
+    """The Configs the session refused before the alternates were ported
+    (group 3 and the dilated group, stage-1 sample compaction, the march
+    variants, the block march without the prepass, float32 tables) load,
+    resolve the JAX session's plan (march group, variant and prepass
+    after the step-downs, K2, the bucket, the budgets) and serve. Their
+    frames against JAX's: tests/test_torch_alternates.py; emb and
+    exp_eye off, which need states of their own:
+    tests/test_torch_alternates_identity.py."""
     data, ws = blob
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        _port(data, ws, **kw)
+    plan = dict(kw, infer_window_candidates=40, budget_frac=1.0)
+    js = JSession(JConfig(**BASE, **plan))
+    js.load_model(data, ws)
+    s = _port(data, ws, **plan)
+    assert s.march_plan == tuple(js.march_plan)
+    assert (s.k2, s.bucket, s.budget, s.sample_budget, s.stage2_budget) == (
+        js.k2, js._bucket, js.budget, js.sample_budget, js.stage2_budget)
+    got = _run(s, _feats(2, 4))
+    assert sorted(got) == [0, 1]
+    assert all(b.shape == (64 * 64 * 3,) for b in got.values())
 
 
 def test_load_model_refusals(blob, tmp_path):

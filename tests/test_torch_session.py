@@ -97,6 +97,31 @@ def test_stage2_overflow_rebuilds_once():
     assert not np.array_equal(out["frames"][0], conv_out["frames"][0])
 
 
+def test_sample_budget_escape_rebuilds_to_exact_frames():
+    """Stage-1 sample compaction in the bench session, from 256 sample
+    slots: the marched stage-1 samples overflow, the session warns,
+    streams every frame and rebuilds at the next chunk boundary with 1.25
+    x the observed samples in whole granules (at most the stage-1
+    lattice); the frames after the rebuild equal the uncompacted
+    session's, frame 0 was cut."""
+    auds, eyes = _inputs(6)
+    logs = []
+    s = _session(log=logs.append, sample_budget=256)
+    assert s.sample_budget == 256
+    out = s.render(auds, eyes)
+    assert len(out["frames"]) == 6
+    assert any("marched stage-1 points exceed the sample budget 256" in m
+               for m in logs), logs
+    first = max(out["n_spts"][:2])
+    assert s.sample_budget == min(s._sample_cap,
+                                  -(-int(first * 1.25) // s.gran) * s.gran)
+    assert max(out["n_spts"][4:]) <= s.sample_budget
+    base = _session().render(auds, eyes)
+    for f in (4, 5):
+        np.testing.assert_array_equal(out["frames"][f], base["frames"][f])
+    assert not np.array_equal(out["frames"][0], base["frames"][0])
+
+
 def test_masked_ema_after_reset_equals_fresh_session():
     auds, eyes = _inputs(3)
     s = _session()

@@ -452,7 +452,8 @@ def test_serving_staged_composite_at_threshold_matches_jax():
                           mask=_t(mask))
     j_img, j_ws, j_n2, _ = j_staged(j_apply, None, jrs, jres, jnp.asarray(rd),
                                     None, None, None, B, S, split, 16)
-    t_img, t_ws, t_n2 = t_staged(t_apply, trs, tres, _t(rd), B, S, split, 16)
+    t_img, t_ws, t_n2, _ = t_staged(t_apply, trs, tres, _t(rd), B, S, split,
+                                    16)
     # survivors at the split: at and above of the split rows, and the
     # three stage-2 rows (their transmittance at the split is about e^-4)
     assert int(t_n2) == int(j_n2) == 5
